@@ -1,0 +1,159 @@
+"""Block-manager presets (paper §6 comparison points) + run helpers.
+
+The counterpart of ``repro.core.managers`` for the presets whose detector
+is static: ``wolf``, ``single_group``, ``wolf_lru`` and ``wolf_wear``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core.simulator import SimContext, check_supported, run
+from repro_torch.core.ssd import Geometry, ManagerConfig, init_state
+from repro_torch.core.workloads import Phase
+
+
+def wolf(**kw) -> ManagerConfig:
+    """The paper's system: measured stats, closed-form OP allocation,
+    movement operations, greedy GC."""
+    return ManagerConfig(
+        name="wolf", alloc_mode="wolf", gc_policy="greedy",
+        movement_ops=True, td_mode="static", **kw
+    )
+
+
+def single_group(**kw) -> ManagerConfig:
+    """Grey-line baseline: all pages mixed in one group."""
+    return ManagerConfig(
+        name="single", alloc_mode="single", gc_policy="greedy",
+        movement_ops=False, td_mode="static", max_groups=kw.pop("max_groups", 1),
+        **kw
+    )
+
+
+def wolf_lru(**kw) -> ManagerConfig:
+    """Ablation for Fig. 2 (greedy vs LRU under movement operations)."""
+    return ManagerConfig(
+        name="wolf-lru", alloc_mode="wolf", gc_policy="lru",
+        movement_ops=True, td_mode="static", **kw
+    )
+
+
+def wolf_wear(**kw) -> ManagerConfig:
+    """Wolf with wear-leveling victim scoring (the ``wear`` weight point:
+    α = 1, β = 0.25)."""
+    return ManagerConfig(
+        name="wolf-wear", alloc_mode="wolf", gc_policy="wear",
+        movement_ops=True, td_mode="static", **kw
+    )
+
+
+@dataclasses.dataclass
+class RunResult:
+    app: np.ndarray  # cumulative application writes
+    mig: np.ndarray  # cumulative migrations
+    state: object    # the final SimState
+    # trace stride: element j covers writes up to step (j+1)·stride - 1
+    stride: int = 1
+    host_syncs: int = 0  # device→host reads the run made for decisions
+
+    @property
+    def wa_total(self) -> float:
+        return float((self.app[-1] + self.mig[-1]) / max(self.app[-1], 1))
+
+    def wa_curve(self, window: int = 2000) -> np.ndarray:
+        """Windowed WA over time: (Δapp+Δmig)/Δapp per window of ``window``
+        writes (a multiple of the trace stride)."""
+        if window % self.stride:
+            raise ValueError(f"window {window} is no multiple of {self.stride}")
+        w = window // self.stride
+        app, mig = self.app, self.mig
+        idx = np.arange(w, len(app) + 1, w) - 1
+        prev = np.maximum(idx - w, -1)
+        d_app = app[idx] - np.where(prev >= 0, app[prev], 0)
+        d_mig = mig[idx] - np.where(prev >= 0, mig[prev], 0)
+        return np.where(d_app > 0, (d_app + d_mig) / np.maximum(d_app, 1), 1.0)
+
+
+def fdp_assumed_arrays(phase: Phase, g_max: int):
+    """FDP's FIXED assumptions, taken from the initial phase: group i+1 is
+    2× hotter per page (paper §6.2 green line); sizes from the phase."""
+    n = min(len(phase.sizes), g_max)
+    sizes = np.asarray(phase.sizes[:n], np.float64)
+    rate = 2.0 ** np.arange(n)
+    agg = sizes * rate
+    assumed_p = np.zeros(g_max, np.float32)
+    assumed_p[:n] = agg / agg.sum()
+    fdp_rate = np.zeros(g_max, np.float32)
+    fdp_rate[:n] = (assumed_p[:n] / sizes).astype(np.float32)
+    return assumed_p, fdp_rate
+
+
+def build_drive(
+    geom: Geometry,
+    mcfg: ManagerConfig,
+    phases: list[Phase],
+    *,
+    init_p_from_phase: bool = True,
+    device="cuda",
+):
+    """Pre-conditioned drive state on ``device`` for a phase sequence.
+
+    Returns (st, n_groups, assumed_p [G], fdp_rate [G], page_group [LBA]),
+    the JAX package's tuple without the oracle page rates, which only the
+    FDP detector reads.
+    """
+    first = phases[0]
+    n_groups = 1 if mcfg.max_groups == 1 else len(first.sizes)
+    g_max = mcfg.max_groups
+    page_group = (
+        np.zeros(geom.lba_pages, np.int32)
+        if n_groups == 1
+        else first.page_group()
+    )
+    st = init_state(
+        geom, mcfg, page_group, n_groups,
+        use_bloom=mcfg.td_mode == "bloom", device=device,
+    )
+    if init_p_from_phase and n_groups > 1:
+        p0 = np.zeros(g_max, np.float32)
+        p0[: len(first.probs)] = first.probs
+        st.grp_p.copy_(st.grp_p.new_tensor(p0))
+    assumed_p, fdp_rate = fdp_assumed_arrays(first, g_max)
+    return st, n_groups, assumed_p, fdp_rate, page_group
+
+
+def simulate(
+    geom: Geometry,
+    mcfg: ManagerConfig,
+    phases: list[Phase],
+    *,
+    seed: int = 0,
+    init_p_from_phase: bool = True,
+    trace_every: int = 1,
+    device="cuda",
+) -> RunResult:
+    """Run a (possibly multi-phase) pure-write workload under a manager
+    preset on ``device``; the same seed draws the same stream as the JAX
+    package's ``managers.simulate``."""
+    check_supported(mcfg)
+    if any(ph.has_trim for ph in phases):
+        raise NotImplementedError("not ported yet: TRIM op streams")
+    rng = np.random.default_rng(seed)
+    st, n_groups, _, _, _ = build_drive(
+        geom, mcfg, phases, init_p_from_phase=init_p_from_phase,
+        device=device,
+    )
+    ctx = SimContext(geom, mcfg, n_groups, trace_every=trace_every)
+    apps, migs, syncs = [], [], 0
+    for phase in phases:
+        st, trace = run(ctx, st, phase.sample(rng), device=device)
+        apps.append(trace["app"])
+        migs.append(trace["mig"])
+        syncs += trace["host_syncs"]
+    return RunResult(
+        np.concatenate(apps), np.concatenate(migs), st,
+        stride=trace_every, host_syncs=syncs,
+    )

@@ -1,0 +1,44 @@
+"""Public ops: GC slot compaction, dispatched on the tensors' device.
+
+CUDA tensors go to the hand-written kernel, CPU tensors to its plain
+version; there is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kernel import check_args, compact_slots_cuda
+from .ref import compact_slots_flat, compact_slots_ref
+
+
+def compact_slots_(slot_lba, valid, src_block, src_slot, dst_block,
+                   dst_slot) -> None:
+    """In place: apply per-drive move lists [D, M] to the pools slot_lba /
+    valid [D, K, B] (see ``kernels/csrc/compact_slots.cu``)."""
+    args = (slot_lba, valid, src_block, src_slot, dst_block, dst_slot)
+    if slot_lba.is_cuda:
+        compact_slots_cuda(*args)  # checks its args
+    elif slot_lba.device.type == "cpu":
+        check_args(*args)
+        compact_slots_flat(*args)
+    else:
+        raise ValueError(f"compact_slots: no kernel for {slot_lba.device}")
+
+
+def compact_slots(slot_lba, valid, src_block, src_slot, dst_block, dst_slot):
+    """The JAX package's functional signature for one drive: pools [K, B],
+    moves [M]. Returns new (slot_lba, valid)."""
+    slot_lba, valid = slot_lba.clone(), valid.clone()
+    moves = [
+        torch.as_tensor(x, device=slot_lba.device).to(torch.int32)[None]
+        for x in (src_block, src_slot, dst_block, dst_slot)
+    ]
+    compact_slots_(slot_lba[None], valid[None], *moves)
+    return slot_lba, valid
+
+
+__all__ = [
+    "compact_slots", "compact_slots_", "compact_slots_flat",
+    "compact_slots_ref",
+]
