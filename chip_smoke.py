@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels and drive its main path on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--writes N] [--small-writes N] [--iters N]
-                          [--profile-writes N]
+    python3 chip_smoke.py [--seed N] [--writes N] [--churn-events N]
+                          [--small-writes N] [--iters N] [--profile-writes N]
 
 Phases, one JSON line each; any failed check exits non-zero:
 
@@ -11,16 +11,23 @@ Phases, one JSON line each; any failed check exits non-zero:
               random valid inputs at the simulator's Table-2 widths, for one
               drive and for 64: outputs must be equal (integers, exact);
               times over CUDA events, with the bytes-over-HBM bound;
-  equiv_small wolf/two_modal and single_group/uniform at Geometry(4, 32, 8)
-              on the card and on the CPU: traces and state must agree;
+  equiv_small six preset/workload pairs at Geometry(4, 32, 8) on the card
+              and on the CPU (static wolf and single_group, fdp on the §6.2
+              swap, wolf_dynamic on tpcc_like, and TRIM op streams):
+              traces and state must agree;
   full_width  the paper's Table-2 drive (Geometry(8, 1024, 128), 1,048,576
               pages, LBA/PBA 0.70) under wolf on two_modal, through
               managers.simulate on the card with the kernels' launch counts
               set to 0 just before and read just after, then the same seed
               on the CPU: traces must agree and invariants hold;
-  profile     a short Table-2 run under torch.profiler: device busy time
-              against wall time (the idle share), kernels per write, and
-              the kernels that take the most device time.
+  full_width_churn  the same drive under wolf_dynamic (bloom detector,
+              §5.6 demotion, §5.2 groups) on the tpcc_churn op stream, card
+              then CPU, counts set to 0 just before the card run: traces and
+              integer state must agree, TRIMs must land and nothing drop,
+              and every kernel must have been launched;
+  profile     short Table-2 runs of both paths under torch.profiler: device
+              busy time against wall time (the idle share), kernels per
+              event, and the kernels that take the most device time.
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -107,6 +114,24 @@ def write_inputs(torch, gen, d, lba_pages, k, b):
     return rows, page_map, slot_lba, valid
 
 
+def trim_inputs(torch, gen, d, lba_pages, k, b):
+    """Random valid apply_trim inputs for d drives: pools, and one row per
+    drive whose old_pm is the page's mapping (-1, a re-trim, for about a
+    quarter of the drives), with ok = 0 for about an eighth."""
+    dev = "cuda"
+    page_map = torch.randint(-1, k * b, (d, lba_pages), generator=gen,
+                             device=dev, dtype=torch.int32)
+    valid = torch.rand((d, k, b), generator=gen, device=dev) < 0.5
+    lba = torch.randint(0, lba_pages, (d,), generator=gen, device=dev)
+    drive = torch.arange(d, device=dev)
+    unmapped = torch.rand(d, generator=gen, device=dev) < 0.25
+    page_map[drive, lba] = torch.where(unmapped, -1, page_map[drive, lba])
+    old = page_map[drive, lba].long()
+    ok = (torch.rand(d, generator=gen, device=dev) >= 0.125).long()
+    rows = torch.stack([lba, old, ok], 1).to(torch.int32).contiguous()
+    return rows, page_map, valid
+
+
 def compact_inputs(torch, gen, d, k, b):
     """Random valid compact_slots inputs for d drives, M = B moves each:
     sources and destinations are distinct slots of two adjacent blocks, so
@@ -133,8 +158,14 @@ def compact_inputs(torch, gen, d, k, b):
 def phase_kernels(torch, args, card):
     from repro_torch.kernels.gc_compact.kernel import compact_slots_cuda
     from repro_torch.kernels.gc_compact.ref import compact_slots_flat
-    from repro_torch.kernels.write_path.kernel import apply_write_cuda
-    from repro_torch.kernels.write_path.ref import apply_write_flat
+    from repro_torch.kernels.write_path.kernel import (
+        apply_trim_cuda,
+        apply_write_cuda,
+    )
+    from repro_torch.kernels.write_path.ref import (
+        apply_trim_flat,
+        apply_write_flat,
+    )
 
     geom_k = TABLE2["n_luns"] * TABLE2["blocks_per_lun"]
     b = TABLE2["pages_per_block"]
@@ -174,6 +205,39 @@ def phase_kernels(torch, args, card):
         }
         emit(line)
         results[("apply_write", d)] = line
+
+        rows, page_map, valid = trim_inputs(torch, gen, d, lba_pages,
+                                            geom_k, b)
+        outs = []
+        for fn in (apply_trim_cuda, apply_trim_flat):
+            pools = (page_map.clone(), valid.clone())
+            fn(rows, *pools)
+            torch.cuda.synchronize()
+            outs.append(pools)
+        err = max(
+            (x.long() - y.long()).abs().max().item()
+            for x, y in zip(*outs)
+        )
+        check(err == 0, f"apply_trim D={d}: kernel != plain (max {err})")
+        ok = rows[:, 2] != 0
+        n_clear = int((ok & (rows[:, 1] >= 0)).sum())
+        # 12 B row per drive; per ok row 4 B page_map stored, and 1 B of
+        # valid where an old slot is cleared
+        nbytes = 12 * d + 4 * int(ok.sum()) + n_clear
+        pools = (page_map, valid)
+        line = {
+            "phase": "kernels", "name": "apply_trim", "drives": d,
+            "lba_pages": lba_pages, "slots": geom_k * b,
+            "equal": True, "max_abs_err": err,
+            "kernel_ms": time_ms(torch, lambda: apply_trim_cuda(rows, *pools),
+                                 args.iters),
+            "plain_ms": time_ms(torch, lambda: apply_trim_flat(rows, *pools),
+                                args.iters),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None, "card": card,
+        }
+        emit(line)
+        results[("apply_trim", d)] = line
 
         slot_lba, valid, moves = compact_inputs(torch, gen, d, geom_k, b)
         outs = []
@@ -227,51 +291,81 @@ def phase_equiv_small(torch, args):
     from repro_torch.core.ssd import Geometry, assert_invariants
 
     geom = Geometry(4, 32, 8)
-    n = args.small_writes
-    for mcfg, phase in (
-        (managers.wolf(), workloads.two_modal(geom.lba_pages, n)),
-        (managers.single_group(), workloads.uniform(geom.lba_pages, n)),
-    ):
-        runs = {
-            dev: managers.simulate(geom, mcfg, [phase], seed=args.seed,
+    n, lba = args.small_writes, geom.lba_pages
+    runs = [
+        ("wolf", "two_modal", [workloads.two_modal(lba, n)]),
+        ("single_group", "uniform", [workloads.uniform(lba, n)]),
+        ("fdp", "swap_phases", list(workloads.swap_phases(lba, n // 2))),
+        ("wolf_dynamic", "tpcc_like", [workloads.tpcc_like(lba, n)]),
+        ("wolf_trim_aware", "tpcc_churn", [workloads.tpcc_churn(lba, n)]),
+        ("single_group", "trimmed(uniform, 0.5)",
+         [workloads.trimmed(workloads.uniform(lba, n), 0.5)]),
+    ]
+    for preset, workload, phases in runs:
+        mcfg = getattr(managers, preset)()
+        t0 = time.perf_counter()
+        res = {
+            dev: managers.simulate(geom, mcfg, phases, seed=args.seed,
                                    device=dev)
             for dev in ("cuda", "cpu")
         }
-        bad = same_run(torch, runs["cuda"], runs["cpu"])
-        check(not bad, f"equiv_small {mcfg.name}: cuda != cpu in {bad}")
-        assert_invariants(runs["cuda"].state, f"equiv_small {mcfg.name}")
+        seconds = time.perf_counter() - t0
+        label = f"equiv_small {preset}/{workload}"
+        bad = same_run(torch, res["cuda"], res["cpu"])
+        check(not bad, f"{label}: cuda != cpu in {bad}")
+        assert_invariants(res["cuda"].state, label)
+        st = res["cuda"].state
+        check(int(st.n_dropped) == 0, f"{label}: dropped writes")
         emit({
             "phase": "equiv_small", "manager": mcfg.name,
-            "geometry": [4, 32, 8], "writes": n, "identical": True,
-            "wa_total": runs["cuda"].wa_total,
-            "host_syncs": runs["cuda"].host_syncs,
+            "workload": workload, "geometry": [4, 32, 8], "events": n,
+            "identical": True, "wa_total": res["cuda"].wa_total,
+            "trims": int(st.n_trim), "groups_active": int(st.grp_active.sum()),
+            "host_syncs": res["cuda"].host_syncs,
+            "seconds_card_and_cpu": seconds,
         })
 
 
-def phase_full_width(torch, args, card):
-    from repro_torch.core import managers, simulator, workloads
-    from repro_torch.core.ssd import Geometry, assert_invariants
+def zero_counts() -> None:
+    """Set every kernel's launch count and the host-sync count to 0."""
+    from repro_torch.core import simulator
     from repro_torch.kernels.gc_compact import kernel as gc_kernel
     from repro_torch.kernels.write_path import kernel as wp_kernel
+
+    wp_kernel.launches = wp_kernel.trim_launches = 0
+    gc_kernel.launches = 0
+    simulator.host_syncs = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.gc_compact import kernel as gc_kernel
+    from repro_torch.kernels.write_path import kernel as wp_kernel
+
+    return {
+        "apply_write": wp_kernel.launches,
+        "apply_trim": wp_kernel.trim_launches,
+        "compact_slots": gc_kernel.launches,
+    }
+
+
+def phase_full_width(torch, args, card):
+    from repro_torch.core import managers, workloads
+    from repro_torch.core.ssd import Geometry, assert_invariants
 
     geom = Geometry(**TABLE2)
     phase = workloads.two_modal(geom.lba_pages, args.writes, p_hot=0.9,
                                 frac_hot=0.5)
-    wp_kernel.launches = 0
-    gc_kernel.launches = 0
-    simulator.host_syncs = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card_run = managers.simulate(geom, managers.wolf(), [phase],
                                  seed=args.seed, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {
-        "apply_write": wp_kernel.launches,
-        "compact_slots": gc_kernel.launches,
-    }
-    for name, n in launches.items():
-        check(n > 0, f"full_width: the main path never launched {name}")
+    launches = read_launches()
+    for name in ("apply_write", "compact_slots"):
+        check(launches[name] > 0,
+              f"full_width: the main path never launched {name}")
     assert_invariants(card_run.state, "full_width (cuda)")
 
     t0 = time.perf_counter()
@@ -302,6 +396,63 @@ def phase_full_width(torch, args, card):
     return line
 
 
+def phase_full_width_churn(torch, args, card):
+    """wolf_dynamic on the tpcc_churn op stream at Table-2 size: the
+    bloom detector, demoting drains, §5.2 groups and TRIMs."""
+    from repro_torch.core import managers, simulator, workloads
+    from repro_torch.core.ssd import Geometry, assert_invariants
+
+    geom = Geometry(**TABLE2)
+    n = args.churn_events
+    phases = [workloads.tpcc_churn(geom.lba_pages, n)]
+    mcfg = managers.wolf_dynamic()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_run = managers.simulate(geom, mcfg, phases, seed=args.seed,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    syncs = simulator.host_syncs
+    for name, count in launches.items():
+        check(count > 0, f"full_width_churn: the path never launched {name}")
+    st = card_run.state
+    assert_invariants(st, "full_width_churn (cuda)")
+    check(int(st.n_trim) > 0, "full_width_churn: no TRIM landed")
+    check(int(st.n_dropped) == 0, "full_width_churn: dropped writes")
+
+    t0 = time.perf_counter()
+    cpu_run = managers.simulate(geom, mcfg, phases, seed=args.seed,
+                                device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    bad = same_run(torch, card_run, cpu_run)
+    check(not bad, f"full_width_churn: cuda != cpu in {bad}")
+    check(np.isfinite(card_run.wa_total) and card_run.wa_total >= 1.0,
+          f"full_width_churn: WA {card_run.wa_total}")
+    writes = int(st.n_app)
+    line = {
+        "phase": "full_width_churn", "manager": mcfg.name,
+        "workload": "tpcc_churn",
+        "geometry": [TABLE2["n_luns"], TABLE2["blocks_per_lun"],
+                     TABLE2["pages_per_block"]],
+        "lba_pages": geom.lba_pages, "events": n, "writes": writes,
+        "trims": int(st.n_trim), "migrations": int(st.n_mig),
+        "erases": int(st.n_erase), "intervals": int(st.interval),
+        "groups_active": int(st.grp_active.sum()),
+        "groups_created": int((st.grp_created > 0).sum()),
+        "identical_to_cpu": True, "invariants": True,
+        "wa_total": card_run.wa_total,
+        "seconds": seconds, "events_per_s": n / seconds,
+        "cpu_seconds": cpu_seconds, "cpu_events_per_s": n / cpu_seconds,
+        "host_syncs": syncs, "host_syncs_per_event": syncs / n,
+        "host_syncs_per_write": syncs / writes,
+        "launches": launches, "card": card,
+    }
+    emit(line)
+    return line
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -310,50 +461,61 @@ def _device_us(evt) -> float:
 
 
 def phase_profile(torch, args, card):
-    """Where the card's time goes in the main path (Table-2 wolf run)."""
+    """Where the card's time goes on both paths (Table-2 wolf on two_modal,
+    and wolf_dynamic on the tpcc_churn op stream)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import managers, workloads
     from repro_torch.core.ssd import Geometry
 
     geom = Geometry(**TABLE2)
-    phase = workloads.two_modal(geom.lba_pages, args.profile_writes,
-                                p_hot=0.9, frac_hot=0.5)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        managers.simulate(geom, managers.wolf(), [phase], seed=args.seed + 1,
-                          device="cuda")
+    n = args.profile_writes
+    paths = [
+        ("full_width", managers.wolf(),
+         workloads.two_modal(geom.lba_pages, n, p_hot=0.9, frac_hot=0.5)),
+        ("full_width_churn", managers.wolf_dynamic(),
+         workloads.tpcc_churn(geom.lba_pages, n)),
+    ]
+    for path, mcfg, phase in paths:
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == cuda]
-    busy_us = sum(_device_us(e) for e in kern)
-    launches = sum(e.count for e in kern)
-    top = sorted(kern, key=_device_us, reverse=True)[:6]
-    line = {
-        "phase": "profile", "writes": args.profile_writes,
-        "wall_s": wall,
-        "device_busy_s": busy_us / 1e6 if kern else "not measured",
-        "device_idle_share": 1 - busy_us / 1e6 / wall if kern
-        else "not measured",
-        "kernels_per_write": launches / args.profile_writes,
-        "top_kernels": [[e.key[:80], _device_us(e) / 1e3, e.count]
-                        for e in top],
-        "card": card,
-    }
-    emit(line)
+        # device activity only: the host-side op records are not read, and
+        # collecting them costs minutes after the window
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = managers.simulate(geom, mcfg, [phase], seed=args.seed + 1,
+                                    device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        cuda = torch.autograd.DeviceType.CUDA
+        kern = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == cuda]
+        busy_us = sum(_device_us(e) for e in kern)
+        launches = sum(e.count for e in kern)
+        top = sorted(kern, key=_device_us, reverse=True)[:6]
+        emit({
+            "phase": "profile", "path": path, "manager": mcfg.name,
+            "events": n, "wall_s": wall,
+            "device_busy_s": busy_us / 1e6 if kern else "not measured",
+            "device_idle_share": 1 - busy_us / 1e6 / wall if kern
+            else "not measured",
+            "kernels_per_event": launches / n,
+            "host_syncs_per_event": res.host_syncs / n,
+            "top_kernels": [[e.key[:80], _device_us(e) / 1e3, e.count]
+                            for e in top],
+            "card": card,
+        })
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--writes", type=int, default=100_000)
+    ap.add_argument("--churn-events", type=int, default=50_000)
     ap.add_argument("--small-writes", type=int, default=6000)
     ap.add_argument("--iters", type=int, default=1000)
     ap.add_argument("--profile-writes", type=int, default=1000)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     import torch
@@ -371,30 +533,46 @@ def main() -> None:
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "kernel_build_s": build_s,
     })
-    kernels = phase_kernels(torch, args, card)
-    phase_equiv_small(torch, args)
-    full = phase_full_width(torch, args, card)
-    phase_profile(torch, args, card)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(torch, args, *a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    kernels = timed("kernels", phase_kernels, card)
+    timed("equiv_small", phase_equiv_small)
+    paths = {
+        "full_width": timed("full_width", phase_full_width, card),
+        "full_width_churn": timed("full_width_churn", phase_full_width_churn,
+                                  card),
+    }
+    timed("profile", phase_profile, card)
 
     replaces = {
         "apply_write": "src/repro/kernels/write_path/kernel.py:66",
+        "apply_trim": "src/repro/kernels/write_path/kernel.py:117",
         "compact_slots": "src/repro/kernels/gc_compact/kernel.py:67",
     }
     summary = []
-    for name in ("apply_write", "compact_slots"):
+    for name in replaces:
         k1 = kernels[(name, 1)]
+        by_path = {p: line["launches"][name] for p, line in paths.items()}
         summary.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": full["launches"][name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(kernels[(name, d)]["max_abs_err"]
                                for d in (1, 64)),
             "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
             "library_ms": None,
         })
-    emit({"kernels": summary})
+    emit({"kernels": summary, "phase_s": seconds,
+          "script_s": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

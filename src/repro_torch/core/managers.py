@@ -1,7 +1,7 @@
 """Block-manager presets (paper §6 comparison points) + run helpers.
 
-The counterpart of ``repro.core.managers`` for the presets whose detector
-is static: ``wolf``, ``single_group``, ``wolf_lru`` and ``wolf_wear``.
+The counterpart of ``repro.core.managers``: every preset but the
+fault-injecting ``wolf_endurance`` (see ``simulator.check_supported``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,26 @@ def wolf(**kw) -> ManagerConfig:
     return ManagerConfig(
         name="wolf", alloc_mode="wolf", gc_policy="greedy",
         movement_ops=True, td_mode="static", **kw
+    )
+
+
+def wolf_dynamic(**kw) -> ManagerConfig:
+    """Wolf with dynamic group creation/merging (§5.2) and the bloom
+    detector (§5.6): the paper's TPC-C configuration."""
+    return ManagerConfig(
+        name="wolf-dynamic", alloc_mode="wolf", gc_policy="greedy",
+        movement_ops=True, td_mode="bloom", dynamic_groups=True,
+        max_groups=12, **kw
+    )
+
+
+def fdp(**kw) -> ManagerConfig:
+    """Stoica et al. [20] as the paper characterises it: a fixed group
+    order with ASSUMED frequencies (hit rate doubles per group), LRU GC, no
+    movement operations; pages move between groups instead."""
+    return ManagerConfig(
+        name="fdp", alloc_mode="fdp_assumed", gc_policy="lru",
+        movement_ops=False, td_mode="fdp", **kw
     )
 
 
@@ -50,12 +70,21 @@ def wolf_wear(**kw) -> ManagerConfig:
     )
 
 
+def wolf_trim_aware(**kw) -> ManagerConfig:
+    """Wolf with the τ term of the victim score: blocks rich in
+    trimmed-but-unerased slots are deprioritised."""
+    return ManagerConfig(
+        name="wolf-trim-aware", alloc_mode="wolf", gc_policy="trim_aware",
+        movement_ops=True, td_mode="static", **kw
+    )
+
+
 @dataclasses.dataclass
 class RunResult:
     app: np.ndarray  # cumulative application writes
     mig: np.ndarray  # cumulative migrations
     state: object    # the final SimState
-    # trace stride: element j covers writes up to step (j+1)·stride - 1
+    # trace stride: element j covers events up to step (j+1)·stride - 1
     stride: int = 1
     host_syncs: int = 0  # device→host reads the run made for decisions
 
@@ -65,7 +94,8 @@ class RunResult:
 
     def wa_curve(self, window: int = 2000) -> np.ndarray:
         """Windowed WA over time: (Δapp+Δmig)/Δapp per window of ``window``
-        writes (a multiple of the trace stride)."""
+        events (a multiple of the trace stride; in an op stream a window
+        counts writes and TRIMs, and Δapp only its writes)."""
         if window % self.stride:
             raise ValueError(f"window {window} is no multiple of {self.stride}")
         w = window // self.stride
@@ -101,9 +131,10 @@ def build_drive(
 ):
     """Pre-conditioned drive state on ``device`` for a phase sequence.
 
-    Returns (st, n_groups, assumed_p [G], fdp_rate [G], page_group [LBA]),
-    the JAX package's tuple without the oracle page rates, which only the
-    FDP detector reads.
+    Returns (st, n_groups, assumed_p [G], fdp_rate [G], page_rates [P, LBA]
+    — the true per-page update rate of every phase, the FDP detector's
+    input — and page_group0 [LBA], the layout group of every logical page,
+    where a write that re-maps a TRIMMED page lands), as the JAX package's.
     """
     first = phases[0]
     n_groups = 1 if mcfg.max_groups == 1 else len(first.sizes)
@@ -122,7 +153,12 @@ def build_drive(
         p0[: len(first.probs)] = first.probs
         st.grp_p.copy_(st.grp_p.new_tensor(p0))
     assumed_p, fdp_rate = fdp_assumed_arrays(first, g_max)
-    return st, n_groups, assumed_p, fdp_rate, page_group
+    uniform_rate = np.full(geom.lba_pages, 1.0 / geom.lba_pages, np.float32)
+    page_rates = np.stack([
+        phase.page_rate() if n_groups > 1 else uniform_rate
+        for phase in phases
+    ])
+    return st, n_groups, assumed_p, fdp_rate, page_rates, page_group
 
 
 def simulate(
@@ -133,23 +169,42 @@ def simulate(
     seed: int = 0,
     init_p_from_phase: bool = True,
     trace_every: int = 1,
+    ops_stream: bool | None = None,
     device="cuda",
 ) -> RunResult:
-    """Run a (possibly multi-phase) pure-write workload under a manager
-    preset on ``device``; the same seed draws the same stream as the JAX
-    package's ``managers.simulate``."""
+    """Run a (possibly multi-phase) workload under a manager preset on
+    ``device``; the same seed draws the same stream as the JAX package's
+    ``managers.simulate``.
+
+    ops_stream: None routes through the op-stream engine iff a phase
+    carries TRIMs; True forces it for pure-write phases too (the sampled
+    events are then the same, and so is the run). Each phase's run reads
+    that phase's page rates (the FDP detector's oracle input).
+    """
     check_supported(mcfg)
-    if any(ph.has_trim for ph in phases):
-        raise NotImplementedError("not ported yet: TRIM op streams")
+    has_trim = any(ph.has_trim for ph in phases)
+    if ops_stream is None:
+        ops_stream = has_trim
+    if has_trim and not ops_stream:
+        raise ValueError(
+            "phases carry TRIMs: ops_stream=False is not available")
     rng = np.random.default_rng(seed)
-    st, n_groups, _, _, _ = build_drive(
+    st, n_groups, assumed_p, fdp_rate, page_rates, page_group0 = build_drive(
         geom, mcfg, phases, init_p_from_phase=init_p_from_phase,
         device=device,
     )
-    ctx = SimContext(geom, mcfg, n_groups, trace_every=trace_every)
+    ctx = SimContext(geom, mcfg, n_groups, trace_every=trace_every,
+                     with_trim=ops_stream)
     apps, migs, syncs = [], [], 0
-    for phase in phases:
-        st, trace = run(ctx, st, phase.sample(rng), device=device)
+    for phase, page_rate in zip(phases, page_rates):
+        if ops_stream:
+            ops, lbas = phase.sample_ops(rng)
+            kw = dict(ops=ops, page_group0=page_group0)
+        else:
+            lbas, kw = phase.sample(rng), {}
+        st, trace = run(ctx, st, lbas, page_rate=page_rate,
+                        assumed_p=assumed_p, fdp_rate=fdp_rate,
+                        device=device, **kw)
         apps.append(trace["app"])
         migs.append(trace["mig"])
         syncs += trace["host_syncs"]

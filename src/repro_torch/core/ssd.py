@@ -413,7 +413,9 @@ def init_state(
     bits = bloom_bits(geom, mcfg) if use_bloom else 1
 
     def t(x, dtype):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+        # a copy: two fields made from one array (grp_size, grp_live) must
+        # not share storage, which torch.as_tensor gives them on the CPU
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)

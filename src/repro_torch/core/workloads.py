@@ -1,4 +1,5 @@
-"""Workload generators (paper §6 experiments), numpy only.
+"""Workload generators (paper §6 experiments and TRIM op streams), numpy
+only.
 
 The counterpart of ``repro.core.workloads``: the same phases and the same
 ``numpy.random.Generator`` draws, so one seed gives the JAX package and this
@@ -120,3 +121,39 @@ def tpcc_like(lba: int, n_writes: int) -> Phase:
     agg = np.array([0.54 * 0.02, 0.26 * 1.0, 0.20 * 8.0])
     probs = tuple(agg / agg.sum())
     return Phase(sizes, probs, n_writes)
+
+
+# ---------------------------------------------------------------------------
+# op-stream (TRIM) workloads
+# ---------------------------------------------------------------------------
+
+def trimmed(phase: Phase, trim_frac) -> Phase:
+    """Interleave TRIMs into any phase: each event that hits group g is a
+    TRIM with probability ``trim_frac`` (scalar) or ``trim_frac[g]``. With
+    uniform page choice inside the group, about that fraction of the
+    group's pages is unmapped at steady state."""
+    if np.ndim(trim_frac) == 0:
+        tp = (float(trim_frac),) * len(phase.sizes)
+    else:
+        if len(trim_frac) != len(phase.sizes):
+            raise ValueError(f"{len(trim_frac)} trim fractions for "
+                             f"{len(phase.sizes)} groups")
+        tp = tuple(float(t) for t in trim_frac)
+    if not all(0.0 <= t <= 1.0 for t in tp):
+        raise ValueError(f"trim fractions outside [0, 1]: {tp}")
+    return dataclasses.replace(phase, trim_probs=tp)
+
+
+def utilization_sweep(lba: int, n_ops: int, trim_fracs=(0.0, 0.1, 0.25, 0.5)):
+    """Single-group uniform phases holding trim fraction t of the LBA
+    unmapped at steady state, one per entry of ``trim_fracs`` (each an
+    independent drive, not a segment sequence)."""
+    return [trimmed(uniform(lba, n_ops), t) for t in trim_fracs]
+
+
+def tpcc_churn(lba: int, n_ops: int) -> Phase:
+    """TPC-C table churn: the tpcc_like temperature shape with the
+    insert/update/delete lifecycle. The cold group only writes, the warm
+    group prunes lightly (5% TRIMs), and a third of the hot group's events
+    are TRIMs (rows deleted on delivery)."""
+    return trimmed(tpcc_like(lba, n_ops), (0.0, 0.05, 1.0 / 3.0))

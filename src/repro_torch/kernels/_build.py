@@ -34,6 +34,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "apply_write": (
         "apply_write_launch", (_P, _P, _P, _P, _I, _L, _L, _P)),
+    "apply_trim": (
+        "apply_trim_launch", (_P, _P, _P, _I, _L, _L, _P)),
     "compact_slots": (
         "compact_slots_launch", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
 }

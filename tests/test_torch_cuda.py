@@ -1,5 +1,5 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-PyTorch versions, and a card run of the simulator against a CPU run.
+PyTorch versions, and card runs of the simulator against CPU runs.
 
 Every test here needs a card and skips without one. The file imports
 nothing of JAX, so it also runs on a GPU host without JAX:
@@ -88,6 +88,53 @@ def test_kernels_match_plain_versions(cuda, d):
     gc_ops.compact_slots_flat(*want, *moves)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _trim_rows(rng, d):
+    """Pools for d drives and one TRIM row per drive: old_pm is the page's
+    mapping (-1 on drive 0: a re-trim), every fourth row is disabled."""
+    page_map = rng.integers(-1, K * B, (d, LBA)).astype(np.int32)
+    valid = rng.random((d, K, B)) < 0.5
+    rows = []
+    for i in range(d):
+        lba = int(rng.integers(0, LBA))
+        if i == 0:
+            page_map[i, lba] = -1
+        rows.append([lba, int(page_map[i, lba]), int(i % 4 != 3)])
+    return np.asarray(rows, np.int32), page_map, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 9])
+def test_trim_kernel_matches_plain_version(cuda, d):
+    rng = np.random.default_rng(10 + d)
+    rows, *pools = (torch.from_numpy(x).to(cuda) for x in _trim_rows(rng, d))
+    got, want = [p.clone() for p in pools], [p.clone() for p in pools]
+    n = (wp_kernel.launches, wp_kernel.trim_launches)
+    wp_kernel.apply_trim_cuda(rows, *got)
+    assert (wp_kernel.launches, wp_kernel.trim_launches) == (n[0], n[1] + 1)
+    wp_ops.apply_trim_flat(rows, *want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_card_op_stream_run_matches_cpu_run(cuda):
+    """wolf_dynamic on tpcc_churn (bloom detector, demoting drains, §5.2
+    groups, TRIMs) on the card equals the CPU run, bit for bit."""
+    geom = Geometry(4, 32, 8)
+    phases = [workloads.tpcc_churn(geom.lba_pages, 3000)]
+    n = wp_kernel.trim_launches
+    card = managers.simulate(geom, managers.wolf_dynamic(), phases, seed=3,
+                             device="cuda")
+    assert wp_kernel.trim_launches > n
+    host = managers.simulate(geom, managers.wolf_dynamic(), phases, seed=3,
+                             device="cpu")
+    np.testing.assert_array_equal(card.app, host.app)
+    np.testing.assert_array_equal(card.mig, host.mig)
+    for name, v in card.state.items():
+        assert torch.equal(v.cpu(), host.state[name]), name
+    assert_invariants(card.state)
 
 
 @pytest.mark.cuda

@@ -158,9 +158,15 @@ def test_convert_round_trip_and_dtype_check(runs):
 
 @pytest.mark.parametrize("preset", ["fdp", "wolf_dynamic", "wolf_endurance"])
 def test_configs_not_ported_yet_raise(preset):
-    mcfg = ManagerConfig(**dataclasses.asdict(getattr(ref_managers, preset)()))
+    """Fault injection is the one configuration left to port: every preset
+    with a nonzero fault rate is refused, by name."""
+    kw = {} if preset == "wolf_endurance" else {"fault_rate": 1e-3}
+    mcfg = ManagerConfig(
+        **dataclasses.asdict(getattr(ref_managers, preset)(**kw)))
+    assert mcfg.has_faults
     pg = Geometry(*GEOM)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError,
+                       match="not ported yet: fault injection"):
         managers.simulate(pg, mcfg, [workloads.uniform(pg.lba_pages, 16)],
                           device="cpu")
 

@@ -19,7 +19,8 @@ from repro_torch.convert import state_from_numpy
 from repro_torch.core import managers, ssd, workloads
 
 GEOM = (4, 32, 8, 0.7)
-PRESETS = ["wolf", "single_group", "wolf_lru", "wolf_wear"]
+PRESETS = ["wolf", "single_group", "wolf_lru", "wolf_wear", "fdp",
+           "wolf_dynamic", "wolf_trim_aware"]
 
 
 def _to_np(st):
@@ -55,7 +56,7 @@ def test_geometry_properties_match_reference(geom):
         assert getattr(a, name) == getattr(b, name), name
 
 
-@pytest.mark.parametrize("preset", PRESETS + ["fdp", "wolf_dynamic"])
+@pytest.mark.parametrize("preset", PRESETS + ["wolf_endurance"])
 def test_manager_config_values_match_reference(preset):
     ref = getattr(ref_managers, preset)()
     port = (
@@ -119,10 +120,12 @@ def test_init_state_matches_reference(preset):
         pg, getattr(managers, preset)(),
         [_phase(workloads, preset, pg.lba_pages)], device="cpu",
     )
+    assert len(port) == len(ref) == 6
     assert port[1] == ref[1]  # n_groups
     np.testing.assert_array_equal(port[2], ref[2])  # assumed_p
     np.testing.assert_array_equal(port[3], ref[3])  # fdp_rate
-    np.testing.assert_array_equal(port[4], ref[5])  # page_group
+    np.testing.assert_array_equal(port[4], ref[4])  # page_rates [P, LBA]
+    np.testing.assert_array_equal(port[5], ref[5])  # page_group0
     _assert_states_equal(_to_np(ref[0]), _port_np(port[0]))
 
 
