@@ -8,9 +8,14 @@ Phases, one JSON line each; any failed check exits non-zero:
   env         the card (nvidia-smi name and power limit), torch and CUDA
               versions, and the wall time of building the kernels;
   kernels     each hand-written kernel against its plain PyTorch version on
-              random valid inputs at the simulator's Table-2 widths, for one
-              drive and for 64: outputs must be equal (integers, exact);
-              times over CUDA events, with the bytes-over-HBM bound;
+              random valid inputs: the simulator's three at Table-2 widths,
+              for one drive and for 64, equal (integers, exact); the serving
+              path's three at internlm2-1.8b's full width in fp32 and bf16:
+              gc_compact exactly, paged_attention and flash_attention within
+              1e-5 (fp32) and 2e-2 (bf16); times over CUDA events, with the
+              least time the card could take (bytes over HBM, or operations
+              over the peak rate), and for flash_attention PyTorch's
+              scaled_dot_product_attention on the same inputs as a yardstick;
   equiv_small six preset/workload pairs at Geometry(4, 32, 8) on the card
               and on the CPU (static wolf and single_group, fdp on the §6.2
               swap, wolf_dynamic on tpcc_like, and TRIM op streams):
@@ -25,9 +30,25 @@ Phases, one JSON line each; any failed check exits non-zero:
               then CPU, counts set to 0 just before the card run: traces and
               integer state must agree, TRIMs must land and nothing drop,
               and every kernel must have been launched;
-  profile     short Table-2 runs of both paths under torch.profiler: device
-              busy time against wall time (the idle share), kernels per
-              event, and the kernels that take the most device time.
+  serve_full_width  the Wolf-KV serving engine on internlm2-1.8b at its
+              full published width in bf16 (random weights from --seed): 48
+              requests of 256 prompt tokens and 256 new ones, policies
+              cycling append / h2o:50 / window:32, 768 KV blocks of 16 slots,
+              batch 32, counts set to 0 just before: decode tokens/s, step
+              and prefill times, WA, launches, peak memory; the control plane
+              (steps, appended, copied, every move list) must equal the same
+              request set's at smoke width on the CPU, every block must be
+              free at the end, and every logit finite;
+  dense_vs_paged  internlm2-1.8b at full width in fp32: two 512-token prompts
+              through the dense prefill (the flash kernel) and the paged
+              prefill, four decode steps on both, then scattered evictions,
+              a compaction (the gc_compact kernel) and one more decode
+              against the dense cache with the evicted positions masked:
+              logits must agree within 2e-3 at every step;
+  profile     short runs of the simulator's two Table-2 paths and of the
+              serving engine under torch.profiler: device busy time against
+              wall time (the idle share), kernels per event, and the kernels
+              that take the most device time.
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -46,6 +67,8 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# dense peak rates of the operations' type (H100 SXM data sheet)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TABLE2 = dict(n_luns=8, blocks_per_lun=1024, pages_per_block=128,
               lba_pba=0.70)
 
@@ -151,6 +174,206 @@ def compact_inputs(torch, gen, d, k, b):
     ]
     moves = [m.to(torch.int32).contiguous() for m in moves]
     return slot_lba, valid, moves
+
+
+# the serving path: internlm2-1.8b at full width behind this engine
+SERVE_ARCH = "internlm2-1.8b"
+SERVE = dict(n_blocks=768, page=16, max_pages_per_seq=64, max_batch=32)
+SERVE_POLICIES = ("append", "h2o:50", "window:32")  # launch/serve.py's cycle
+SERVE_PROMPT = 256
+# 48 requests of 256 new tokens: shorter sets never fill the pool enough
+# for the h2o churn to compact (checked on the CPU at smoke width)
+SERVE_REQUESTS, SERVE_NEW = 48, 256
+
+
+def serve_kv(cfg) -> dict:
+    """The KV pool's shape on the serving path."""
+    return dict(layers=cfg.n_layers, blocks=SERVE["n_blocks"],
+                page=SERVE["page"], kv_heads=cfg.n_kv_heads,
+                d_head=cfg.d_head)
+
+
+def gc_inputs(torch, rng, dtype, kv, moves=512):
+    """K and V pools [L, N, P, Hkv, D] and a host move list [M, 4] whose
+    source and destination slot sets overlap; a tenth of the rows are
+    no-ops."""
+    shape = (kv["layers"], kv["blocks"], kv["page"], kv["kv_heads"],
+             kv["d_head"])
+    pools = [torch.randn(shape, device="cuda").to(dtype) for _ in range(2)]
+    slots = kv["blocks"] * kv["page"]
+    src = rng.choice(slots, moves, replace=False)
+    dst = rng.choice(slots, moves, replace=False)
+    mv = np.stack([src // kv["page"], src % kv["page"], dst // kv["page"],
+                   dst % kv["page"]], 1).astype(np.int32)
+    mv[rng.random(moves) < 0.1, 0] = -1
+    return pools, torch.from_numpy(mv)
+
+
+def paged_inputs(torch, rng, dtype, kv, b, hq, m):
+    """One decode token per sequence over the pool: lengths 256-512, a
+    random block per page, about a fifth of the slots holes (the newest
+    token always valid)."""
+    n, p, hkv, d = kv["blocks"], kv["page"], kv["kv_heads"], kv["d_head"]
+    lengths = rng.integers(256, 513, b).astype(np.int32)
+    tables = np.full((b, m), -1, np.int32)
+    valid = (rng.random((b, m, p)) < 0.8).astype(np.int8)
+    for i in range(b):
+        pages = -(-int(lengths[i]) // p)
+        tables[i, :pages] = rng.choice(n, pages, replace=False)
+        t = int(lengths[i]) - 1
+        valid[i, t // p, t % p] = 1
+    q = torch.randn((b, hq, d), device="cuda").to(dtype)
+    pools = [torch.randn((n, p, hkv, d), device="cuda").to(dtype)
+             for _ in range(2)]
+    rest = [torch.from_numpy(x).cuda() for x in (tables, lengths, valid)]
+    return q, pools, rest
+
+
+def flash_inputs(torch, dtype, hq, hkv, d, b=1, s=2048):
+    return [(torch.randn(shape, device="cuda") * 0.5).to(dtype)
+            for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+
+
+def row_rel_err(got, want) -> float:
+    """The largest error of a row of the head dimension over that row's
+    largest |plain| value: bf16 attention outputs can lie far below the
+    absolute bound, so this holds every row at its own scale."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    return (err / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def serving_kernels(torch, args, card):
+    """The serving path's three kernels at full width, fp32 and bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.gc_compact.kernel import gc_compact_cuda
+    from repro_torch.kernels.gc_compact.ref import gc_compact_ref
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda,
+    )
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(SERVE_ARCH)
+    kv = serve_kv(cfg)
+    rng = np.random.default_rng(args.seed)
+    torch.manual_seed(args.seed)
+    iters = max(10, args.iters // 20)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    row_tol = 2e-2  # bf16: each row within 2% of its own largest value
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[1]
+        esize = torch.finfo(dtype).bits // 8
+
+        pools, moves = gc_inputs(torch, rng, dtype, kv)
+        outs = []
+        for fn in (gc_compact_cuda, gc_compact_ref):
+            got = [t.clone() for t in pools]
+            fn(*got, moves)
+            torch.cuda.synchronize()
+            outs.append(got)
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in zip(*outs))
+        check(err == 0, f"gc_compact {tname}: kernel != plain (max {err})")
+        del outs
+        live = int((moves[:, 0] >= 0).sum())
+        row = kv["kv_heads"] * kv["d_head"] * esize
+        # each live move reads and writes one slot of K and V per layer
+        nbytes = 2 * 2 * kv["layers"] * live * row + 16 * len(moves)
+        line = {
+            "phase": "kernels", "name": "gc_compact", "dtype": tname,
+            **kv, "moves": len(moves), "live_moves": live,
+            "equal": True, "max_abs_err": err,
+            "kernel_ms": time_ms(torch, lambda: gc_compact_cuda(*pools, moves),
+                                 iters),
+            "plain_ms": time_ms(torch, lambda: gc_compact_ref(*pools, moves),
+                                iters),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None, "card": card,
+        }
+        emit(line)
+        results[("gc_compact", tname)] = line
+        del pools
+
+        q, (kp, vp), rest = paged_inputs(
+            torch, rng, dtype, kv, SERVE["max_batch"], cfg.n_heads,
+            SERVE["max_pages_per_seq"])
+        got = paged_attention_cuda(q, kp, vp, *rest)
+        want = paged_attention_ref(q, kp, vp, *rest)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = row_rel_err(got, want)
+        check(err <= tol[dtype] and (dtype == torch.float32 or rel <= row_tol),
+              f"paged_attention {tname}: kernel vs plain {err} (abs), "
+              f"{rel} (row-relative)")
+        tables, lengths = rest[0].cpu(), rest[1].cpu()
+        starts = torch.arange(tables.shape[1])[None] * kv["page"]
+        pages = int(((tables >= 0) & (starts < lengths[:, None])).sum())
+        page_bytes = kv["page"] * kv["kv_heads"] * kv["d_head"] * esize
+        # K and V of every page read, q in and out, tables, lengths, holes
+        nbytes = (2 * pages * page_bytes + 2 * q.numel() * esize
+                  + 4 * tables.numel() + 4 * len(lengths) + rest[2].numel())
+        line = {
+            "phase": "kernels", "name": "paged_attention", "dtype": tname,
+            "batch": q.shape[0], "q_heads": q.shape[1], **kv,
+            "max_pages": tables.shape[1], "pages_read": pages,
+            "max_abs_err": err, "max_row_rel_err": rel,
+            "kernel_ms": time_ms(
+                torch, lambda: paged_attention_cuda(q, kp, vp, *rest), iters),
+            "plain_ms": time_ms(
+                torch, lambda: paged_attention_ref(q, kp, vp, *rest), iters),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None, "card": card,
+        }
+        emit(line)
+        results[("paged_attention", tname)] = line
+        del q, kp, vp, rest, got, want
+
+        q, k, v = flash_inputs(torch, dtype, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.d_head)
+        got = flash_attention_cuda(q, k, v, causal=True)
+        want = flash_attention_ref(q, k, v, causal=True)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = row_rel_err(got, want)
+        check(err <= tol[dtype] and (dtype == torch.float32 or rel <= row_tol),
+              f"flash_attention {tname}: kernel vs plain {err} (abs), "
+              f"{rel} (row-relative)")
+        b, s, hq, d = q.shape
+        # the causal pairs' two products (Q.K and P.V), 2 flops per MAC
+        flops = 4 * b * hq * d * s * (s + 1) // 2
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+        bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                  "operations": flops / PEAK_FLOPS[tname] * 1e3}
+        bound_by = max(bounds, key=bounds.get)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        line = {
+            "phase": "kernels", "name": "flash_attention", "dtype": tname,
+            "batch": b, "seq": s, "q_heads": hq, "kv_heads": k.shape[2],
+            "d_head": d, "causal": True, "max_abs_err": err,
+            "max_row_rel_err": rel,
+            "kernel_ms": time_ms(
+                torch, lambda: flash_attention_cuda(q, k, v, causal=True),
+                iters),
+            "plain_ms": time_ms(
+                torch, lambda: flash_attention_ref(q, k, v, causal=True),
+                iters),
+            "bytes": nbytes, "flops": flops, "bound_ms": bounds[bound_by],
+            "bound_by": bound_by,
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), iters),
+            "card": card,
+        }
+        line["tflops"] = flops / line["kernel_ms"] / 1e9
+        emit(line)
+        results[("flash_attention", tname)] = line
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return results
 
 
 # -- phases -----------------------------------------------------------------
@@ -268,6 +491,7 @@ def phase_kernels(torch, args, card):
         }
         emit(line)
         results[("compact_slots", d)] = line
+    results.update(serving_kernels(torch, args, card))
     return results
 
 
@@ -329,22 +553,30 @@ def phase_equiv_small(torch, args):
 def zero_counts() -> None:
     """Set every kernel's launch count and the host-sync count to 0."""
     from repro_torch.core import simulator
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.gc_compact import kernel as gc_kernel
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
     from repro_torch.kernels.write_path import kernel as wp_kernel
 
     wp_kernel.launches = wp_kernel.trim_launches = 0
-    gc_kernel.launches = 0
+    gc_kernel.launches = gc_kernel.kv_launches = 0
+    paged_kernel.launches = flash_kernel.launches = 0
     simulator.host_syncs = 0
 
 
 def read_launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.gc_compact import kernel as gc_kernel
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
     from repro_torch.kernels.write_path import kernel as wp_kernel
 
     return {
         "apply_write": wp_kernel.launches,
         "apply_trim": wp_kernel.trim_launches,
         "compact_slots": gc_kernel.launches,
+        "gc_compact": gc_kernel.kv_launches,
+        "paged_attention": paged_kernel.launches,
+        "flash_attention": flash_kernel.launches,
     }
 
 
@@ -415,8 +647,9 @@ def phase_full_width_churn(torch, args, card):
     seconds = time.perf_counter() - t0
     launches = read_launches()
     syncs = simulator.host_syncs
-    for name, count in launches.items():
-        check(count > 0, f"full_width_churn: the path never launched {name}")
+    for name in ("apply_write", "apply_trim", "compact_slots"):
+        check(launches[name] > 0,
+              f"full_width_churn: the path never launched {name}")
     st = card_run.state
     assert_invariants(st, "full_width_churn (cuda)")
     check(int(st.n_trim) > 0, "full_width_churn: no TRIM landed")
@@ -453,6 +686,218 @@ def phase_full_width_churn(torch, args, card):
     return line
 
 
+def serve_engine(torch, args, cfg, device, n_requests, max_new):
+    """A ServingEngine with the request set submitted."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    eng = ServingEngine(cfg, seed=args.seed, device=device, **SERVE)
+    rng = np.random.default_rng(args.seed)
+    for rid in range(n_requests):
+        eng.submit(Request(
+            rid=rid, prompt=rng.integers(0, cfg.vocab, SERVE_PROMPT).astype(
+                np.int32),
+            max_new=max_new, policy=SERVE_POLICIES[rid % 3]))
+    return eng
+
+
+def phase_serve_full_width(torch, args, card):
+    """internlm2-1.8b at full width in bf16 through the serving engine."""
+    from repro_torch.models.registry import get_config, smoke_config
+
+    cfg = get_config(SERVE_ARCH)
+    n_req, max_new = SERVE_REQUESTS, SERVE_NEW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = serve_engine(torch, args, cfg, "cuda", n_req, max_new)
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in eng.params.parameters()) / 1e9
+    pool_gb = sum(t.numel() * t.element_size()
+                  for t in eng.pools.values()) / 1e9
+
+    # each step: the admissions (slot reservation and prefill) timed on
+    # their own, then the decode step, which admits no more and ends in a
+    # host read of the next tokens; a device-side finiteness flag
+    admit_s, admitted, step_ms, lists = 0.0, 0, [], []
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.running or eng.queue:
+        t1 = time.perf_counter()
+        n = eng.admit()
+        if n:
+            torch.cuda.synchronize()
+            admit_s += time.perf_counter() - t1
+            admitted += n
+        t1 = time.perf_counter()
+        info = eng.step()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        lists.extend(info["move_lists"])
+        if info["logits"] is not None:
+            finite.logical_and_(torch.isfinite(info["logits"]).all())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    mgr = eng.manager
+    mgr.check_invariants()
+    check(bool(finite), "serve_full_width: non-finite logits")
+    check(len(mgr.free) == mgr.n_blocks,
+          f"serve_full_width: {len(mgr.free)} of {mgr.n_blocks} blocks free")
+    decode_tokens = mgr.appended - n_req * SERVE_PROMPT
+    check(launches["paged_attention"] == cfg.n_layers * eng.steps,
+          f"serve_full_width: paged_attention launched "
+          f"{launches['paged_attention']} times in {eng.steps} steps")
+    check(launches["gc_compact"] == len(lists),
+          f"serve_full_width: gc_compact launched {launches['gc_compact']} "
+          f"times for {len(lists)} move lists")
+    for name in ("paged_attention", "gc_compact"):
+        check(launches[name] > 0, f"serve_full_width: never launched {name}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    summary = {"steps": eng.steps, "appended": mgr.appended,
+               "copied": mgr.copied}
+    del eng
+    torch.cuda.empty_cache()
+
+    # the same request set at smoke width on the CPU: the manager's
+    # decisions do not depend on the model, so they must be identical
+    t1 = time.perf_counter()
+    ref = serve_engine(torch, args, smoke_config(cfg), "cpu", n_req, max_new)
+    ref_lists = []
+    while ref.running or ref.queue:
+        ref_lists.extend(ref.step()["move_lists"])
+    cpu_s = time.perf_counter() - t1
+    ref_summary = {"steps": ref.steps, "appended": ref.manager.appended,
+                   "copied": ref.manager.copied}
+    check(summary == ref_summary and lists == ref_lists,
+          f"serve_full_width: control plane {summary} differs from the "
+          f"CPU smoke run's {ref_summary}")
+    decode_s = sum(step_ms) / 1e3
+    line = {
+        "phase": "serve_full_width", "arch": cfg.arch_id, "dtype": cfg.dtype,
+        "layers": cfg.n_layers, "d_model": cfg.d_model, **SERVE,
+        "requests": n_req, "prompt": SERVE_PROMPT, "max_new": max_new,
+        **summary, "move_lists": len(lists),
+        "wa": mgr.write_amplification,
+        "free_blocks_at_end": len(mgr.free),
+        "control_plane_equals_cpu_smoke": True, "invariants": True,
+        "seconds": seconds, "decode_tokens": decode_tokens,
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_p90": float(np.percentile(step_ms, 90)),
+        # admission: the prompt's slot reservation and its prefill pass
+        "prefill_ms_per_request": 1e3 * admit_s / admitted,
+        "launches": launches, "weights_gb": weights_gb, "kv_pool_gb": pool_gb,
+        "peak_memory_gb": peak_gb, "cpu_smoke_seconds": cpu_s, "card": card,
+    }
+    emit(line)
+    return line
+
+
+def phase_dense_vs_paged(torch, args, card):
+    """The paged path held against the dense one at full width in fp32
+    (the counterpart of tests/test_wolf_kv.py:168-268)."""
+    import dataclasses
+
+    from repro_torch.kvcache.manager import WolfKVManager
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_config
+    from repro_torch.serving import paged_model
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "dense_vs_paged: fp32 matmuls must not run in TF32")
+    b, s, n_steps, page, n_blocks, max_pages = 2, 512, 4, 16, 160, 64
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(args.seed), cfg)
+    rng = np.random.default_rng(args.seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s + n_steps + 1)).astype(np.int32)).cuda()
+    errs = []
+
+    def close(got, want, what):  # atol = rtol = 2e-3, elementwise
+        err = (got - want).abs().max().item()
+        ok = bool(((got - want).abs() <= 2e-3 + 2e-3 * want.abs()).all())
+        check(ok, f"dense_vs_paged {what}: paged vs dense max abs err {err}")
+        errs.append(err)
+
+    def decode_inputs(mgr):
+        wb = np.zeros(b, np.int32)
+        ws = np.zeros(b, np.int32)
+        for j in range(b):
+            wb[j], ws[j] = mgr.append_token(j)
+        tables = np.stack([mgr.block_table(j, max_pages) for j in range(b)])
+        valid = np.stack([mgr.slot_valid(j, max_pages)
+                          for j in range(b)]).astype(np.int8)
+        lengths = np.asarray([mgr.cache_len(j) for j in range(b)], np.int32)
+        return [torch.from_numpy(x).cuda()
+                for x in (tables, valid, lengths, wb, ws)]
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, cache = transformer.prefill(params, tokens[:, :s], cfg,
+                                      max_len=s + n_steps + 1)
+    mgr = WolfKVManager(n_blocks, page, 1)
+    wb = np.zeros((b, s), np.int32)
+    ws = np.zeros((b, s), np.int32)
+    for i in range(b):
+        mgr.add_sequence(i, 0)
+        for t in range(s):
+            wb[i, t], ws[i, t] = mgr.append_token(i)
+    pools = paged_model.init_pools(cfg, n_blocks, page, "cuda")
+    got, pools = paged_model.paged_prefill(
+        params, cfg, pools, tokens[:, :s], torch.from_numpy(wb).cuda(),
+        torch.from_numpy(ws).cuda())
+    close(got, want, "prefill")
+    for i in range(n_steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        want, cache = transformer.decode_step(params, cache,
+                                              tokens[:, s + i], pos, cfg)
+        got, pools = paged_model.paged_decode_step(
+            params, cfg, pools, *decode_inputs(mgr), tokens[:, s + i], pos)
+        close(got, want, f"decode {i}")
+
+    # scattered evictions, a compaction of both sequences, one more decode
+    evicted = [np.sort(rng.choice(s, 48, replace=False)) for _ in range(b)]
+    for j in range(b):
+        for ci in evicted[j]:
+            mgr.evict_token(j, int(ci))
+    copied = mgr.gc_group(0) + mgr.gc_group(0)
+    moves = mgr.drain_moves()
+    check(copied > 0 and len(moves) == copied,
+          "dense_vs_paged: the compaction moved nothing")
+    pools = paged_model.apply_moves(pools, moves)
+    mgr.check_invariants()
+    pos = torch.full((b,), s + n_steps, dtype=torch.int32, device="cuda")
+    for j in range(b):
+        cache["kv_pos"][j, torch.from_numpy(evicted[j]).cuda()] = -1
+    want, cache = transformer.decode_step(params, cache,
+                                          tokens[:, s + n_steps], pos, cfg)
+    got, pools = paged_model.paged_decode_step(
+        params, cfg, pools, *decode_inputs(mgr), tokens[:, s + n_steps], pos)
+    close(got, want, "decode after compaction")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"dense_vs_paged: the dense prefill launched flash_attention "
+          f"{launches['flash_attention']} times, not {cfg.n_layers}")
+    for name in ("paged_attention", "gc_compact"):
+        check(launches[name] > 0, f"dense_vs_paged: never launched {name}")
+    line = {
+        "phase": "dense_vs_paged", "arch": cfg.arch_id, "dtype": cfg.dtype,
+        "batch": b, "prompt": s, "decode_steps": n_steps + 1,
+        "evicted_per_seq": len(evicted[0]), "copied": copied,
+        "max_abs_err_by_step": errs, "max_abs_err": max(errs),
+        "bound": "atol = rtol = 2e-3", "seconds": seconds,
+        "launches": launches, "card": card,
+    }
+    emit(line)
+    del params, cache, pools
+    torch.cuda.empty_cache()
+    return line
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -460,13 +905,34 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def kernel_stats(torch, prof, wall):
+    """Device busy time, idle share, launches and the top kernels of a
+    device-only profile."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda]
+    busy_us = sum(_device_us(e) for e in kern)
+    top = sorted(kern, key=_device_us, reverse=True)[:6]
+    return {
+        "wall_s": wall,
+        "device_busy_s": busy_us / 1e6 if kern else "not measured",
+        "device_idle_share": 1 - busy_us / 1e6 / wall if kern
+        else "not measured",
+        "launches": sum(e.count for e in kern),
+        "top_kernels": [[e.key[:80], _device_us(e) / 1e3, e.count]
+                        for e in top],
+    }
+
+
 def phase_profile(torch, args, card):
-    """Where the card's time goes on both paths (Table-2 wolf on two_modal,
-    and wolf_dynamic on the tpcc_churn op stream)."""
+    """Where the card's time goes on the simulator's two Table-2 paths
+    (wolf on two_modal, wolf_dynamic on the tpcc_churn op stream) and on
+    the serving engine's decode steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import managers, workloads
     from repro_torch.core.ssd import Geometry
+    from repro_torch.models.registry import get_config
 
     geom = Geometry(**TABLE2)
     n = args.profile_writes
@@ -486,24 +952,35 @@ def phase_profile(torch, args, card):
                                     device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        cuda = torch.autograd.DeviceType.CUDA
-        kern = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) == cuda]
-        busy_us = sum(_device_us(e) for e in kern)
-        launches = sum(e.count for e in kern)
-        top = sorted(kern, key=_device_us, reverse=True)[:6]
+        stats = kernel_stats(torch, prof, wall)
         emit({
             "phase": "profile", "path": path, "manager": mcfg.name,
-            "events": n, "wall_s": wall,
-            "device_busy_s": busy_us / 1e6 if kern else "not measured",
-            "device_idle_share": 1 - busy_us / 1e6 / wall if kern
-            else "not measured",
-            "kernels_per_event": launches / n,
-            "host_syncs_per_event": res.host_syncs / n,
-            "top_kernels": [[e.key[:80], _device_us(e) / 1e3, e.count]
-                            for e in top],
-            "card": card,
+            "events": n, **stats,
+            "kernels_per_event": stats["launches"] / n,
+            "host_syncs_per_event": res.host_syncs / n, "card": card,
         })
+
+    # decode steps of the serving engine at batch 32, after the prefills
+    steps = 8
+    eng = serve_engine(torch, args, get_config(SERVE_ARCH), "cuda",
+                       SERVE["max_batch"], steps + 2)
+    eng.step()  # admits (prefills) every request and decodes once
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stats = kernel_stats(torch, prof, wall)
+    emit({
+        "phase": "profile", "path": "serve_full_width",
+        "arch": eng.cfg.arch_id, "batch": SERVE["max_batch"],
+        "decode_steps": steps, **stats,
+        "kernels_per_step": stats["launches"] / steps, "card": card,
+    })
+    del eng
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -547,6 +1024,9 @@ def main() -> None:
         "full_width": timed("full_width", phase_full_width, card),
         "full_width_churn": timed("full_width_churn", phase_full_width_churn,
                                   card),
+        "serve_full_width": timed("serve_full_width", phase_serve_full_width,
+                                  card),
+        "dense_vs_paged": timed("dense_vs_paged", phase_dense_vs_paged, card),
     }
     timed("profile", phase_profile, card)
 
@@ -554,22 +1034,34 @@ def main() -> None:
         "apply_write": "src/repro/kernels/write_path/kernel.py:66",
         "apply_trim": "src/repro/kernels/write_path/kernel.py:117",
         "compact_slots": "src/repro/kernels/gc_compact/kernel.py:67",
+        "gc_compact": "src/repro/kernels/gc_compact/kernel.py:103",
+        "paged_attention": "src/repro/kernels/paged_attention/kernel.py:148",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:161",
     }
+    # the case whose times each summary row reports: the simulator's
+    # kernels at D = 1 (its main path), the serving path's in the type its
+    # path runs them in (bf16 serving; the dense check's flash in fp32)
+    case = {"apply_write": 1, "apply_trim": 1, "compact_slots": 1,
+            "gc_compact": "bfloat16", "paged_attention": "bfloat16",
+            "flash_attention": "float32"}
     summary = []
     for name in replaces:
-        k1 = kernels[(name, 1)]
+        sim = isinstance(case[name], int)
+        sizes = (1, 64) if sim else ("float32", "bfloat16")
+        k1 = kernels[(name, case[name])]
         by_path = {p: line["launches"][name] for p, line in paths.items()}
         summary.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
+            "timed_case": f"drives={case[name]}" if sim else case[name],
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(kernels[(name, d)]["max_abs_err"]
-                               for d in (1, 64)),
+                               for d in sizes),
             "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-            "library_ms": None,
+            "library_ms": k1["library_ms"],
         })
     emit({"kernels": summary, "phase_s": seconds,
           "script_s": time.perf_counter() - t_start})

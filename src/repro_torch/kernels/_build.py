@@ -38,6 +38,14 @@ SIGNATURES = {
         "apply_trim_launch", (_P, _P, _P, _I, _L, _L, _P)),
     "compact_slots": (
         "compact_slots_launch", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "gc_compact": (
+        "gc_compact_launch", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "paged_attention": (
+        "paged_attention_launch",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "flash_attention": (
+        "flash_attention_launch",
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 _loaded: dict = {}  # kernel name -> its loaded ctypes launcher

@@ -1,4 +1,5 @@
-"""Public ops: GC slot compaction, dispatched on the tensors' device.
+"""Public ops: GC slot compaction and KV-pool compaction, dispatched on
+the tensors' device.
 
 CUDA tensors go to the hand-written kernel, CPU tensors to its plain
 version; there is no fallback from one to the other.
@@ -8,8 +9,14 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import check_args, compact_slots_cuda
-from .ref import compact_slots_flat, compact_slots_ref
+from .kernel import (
+    check_args,
+    check_kv_args,
+    check_moves,
+    compact_slots_cuda,
+    gc_compact_cuda,
+)
+from .ref import compact_slots_flat, compact_slots_ref, gc_compact_ref
 
 
 def compact_slots_(slot_lba, valid, src_block, src_slot, dst_block,
@@ -38,7 +45,22 @@ def compact_slots(slot_lba, valid, src_block, src_slot, dst_block, dst_slot):
     return slot_lba, valid
 
 
+def gc_compact_(k_pools, v_pools, moves) -> None:
+    """In place: apply the host move list [M, 4] int32 (src_block,
+    src_slot, dst_block, dst_slot; src_block < 0 = no-op) to every layer
+    of the K and V pools [L, N, P, Hkv, D] (see
+    ``kernels/csrc/gc_compact.cu``)."""
+    if k_pools.is_cuda:
+        gc_compact_cuda(k_pools, v_pools, moves)  # checks its args
+    elif k_pools.device.type == "cpu":
+        check_kv_args(k_pools, v_pools)
+        check_moves(moves, *k_pools.shape[1:3])
+        gc_compact_ref(k_pools, v_pools, moves)
+    else:
+        raise ValueError(f"gc_compact: no kernel for {k_pools.device}")
+
+
 __all__ = [
     "compact_slots", "compact_slots_", "compact_slots_flat",
-    "compact_slots_ref",
+    "compact_slots_ref", "gc_compact_", "gc_compact_ref",
 ]

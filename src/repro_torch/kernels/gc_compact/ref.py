@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the GC slot compaction.
+"""Plain PyTorch versions of the GC slot compaction and of the KV-pool
+compaction.
 
 ``compact_slots_ref`` is the 2-D gather-then-scatter formulation,
 functional, the oracle (as ``repro.kernels.gc_compact.ref.
@@ -8,6 +9,13 @@ in plain PyTorch: per-drive move lists ``[D, M]`` applied in place to pools
 is held against on the card. Every read happens before any write, so source
 and destination slots may interleave. Rows the kernel skips (``src_block <
 0``, an index outside the pools) are masked here, never indexed.
+
+``gc_compact_ref`` is the KV kernel's contract and its one plain version
+(the counterpart of ``repro.kernels.gc_compact.ref.gc_compact_ref``, which
+takes one layer and is run under ``vmap``): one move list applied in place
+to every layer of the K and V pools ``[L, N, P, Hkv, D]``, all reads before
+any write. That move list comes from the host and is checked there
+(``kernel.check_moves``), so no row is skipped silently.
 """
 
 from __future__ import annotations
@@ -49,3 +57,12 @@ def compact_slots_flat(slot_lba, valid, src_block, src_slot, dst_block,
     valid_rows = va[drive, src]
     sl[drive, dst] = lba_rows
     va[drive, dst] = valid_rows
+
+
+def gc_compact_ref(k_pools, v_pools, moves) -> None:
+    """In place: k_pools / v_pools [L, N, P, Hkv, D]; moves [M, 4] int32
+    rows (src_block, src_slot, dst_block, dst_slot), checked on the host."""
+    mv = moves[moves[:, 0] >= 0].long().to(k_pools.device)
+    for pools in (k_pools, v_pools):
+        rows = pools[:, mv[:, 0], mv[:, 1]]  # a gather copies: reads first
+        pools[:, mv[:, 2], mv[:, 3]] = rows

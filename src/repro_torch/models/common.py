@@ -1,0 +1,162 @@
+"""Shared model building blocks: initializers, RMSNorm, RoPE, MLPs,
+embeddings (the serving part of ``repro.models.common``).
+
+Each parameter block is an ``nn.Module`` (a container: the functions below
+apply it) whose tensors keep the JAX package's names and layouts
+(``wi_gate [d, d_ff]``, ``embed [V, d]``, …), so ``repro_torch.convert``
+can carry a JAX parameter tree across leaf for leaf. Modules are built
+empty on a device; ``init_(generator)`` fills them from an explicit
+``torch.Generator`` (its device is the modules' device). Parameters take
+no gradient: this slice serves, training comes later.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# -- initializers -------------------------------------------------------------
+
+def dense_init(t: torch.Tensor, generator, in_axis: int = 0) -> None:
+    """In place: truncated normal at ±2σ with σ = fan_in^-½ (maxtext
+    style, as ``repro.models.common.dense_init``)."""
+    w = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    t.copy_(w * t.shape[in_axis] ** -0.5)
+
+
+def embed_init(t: torch.Tensor, generator) -> None:
+    """In place: normal × 0.02."""
+    w = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    w.normal_(generator=generator)
+    t.copy_(w * 0.02)
+
+
+# -- norms --------------------------------------------------------------------
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, device):
+        super().__init__()
+        self.scale = _param((d,), torch.float32, device)
+
+    def init_(self, generator=None) -> None:
+        self.scale.fill_(1.0)
+
+
+def rmsnorm_init(d: int, device) -> RMSNorm:
+    norm = RMSNorm(d, device)
+    norm.init_()
+    return norm
+
+
+def rmsnorm_apply(norm: RMSNorm, x: torch.Tensor, eps: float = 1e-5):
+    """fp32 inside; returns x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * norm.scale).to(x.dtype)
+
+
+# -- RoPE ---------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (
+        torch.arange(0, d_head, 2, dtype=torch.float32, device=device)
+        / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, d_head]; positions: [..., seq] (int). The
+    split-halves form: (x1, x2) → (x1·cos − x2·sin, x2·cos + x1·sin)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = (positions[..., None].float() * freqs)[..., None, :]
+    sin, cos = angles.sin(), angles.cos()
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- MLP (dense): SwiGLU or GELU ----------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, device, d_ff: int | None = None):
+        super().__init__()
+        d, d_ff = cfg.d_model, d_ff or cfg.d_ff
+        dt = param_dtype(cfg)
+        self.mlp_type = cfg.mlp_type
+        if cfg.mlp_type == "swiglu":
+            self.wi_gate = _param((d, d_ff), dt, device)
+            self.wi_up = _param((d, d_ff), dt, device)
+        elif cfg.mlp_type == "gelu":
+            self.wi = _param((d, d_ff), dt, device)
+        else:
+            raise ValueError(f"no MLP of type {cfg.mlp_type!r}")
+        self.wo = _param((d_ff, d), dt, device)
+
+    def init_(self, generator) -> None:
+        for t in self.parameters():
+            dense_init(t, generator)
+
+
+def mlp_init(cfg: ModelConfig, generator, d_ff: int | None = None) -> MLP:
+    mlp = MLP(cfg, generator.device, d_ff)
+    mlp.init_(generator)
+    return mlp
+
+
+def mlp_apply(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
+    """x: [batch, seq, d_model] -> same."""
+    if mlp.mlp_type == "swiglu":
+        h = F.silu(x @ mlp.wi_gate) * (x @ mlp.wi_up)
+    else:
+        h = F.gelu(x @ mlp.wi, approximate="tanh")
+    return h @ mlp.wo
+
+
+# -- embedding / unembedding ----------------------------------------------------
+
+class Embedding(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt = param_dtype(cfg)
+        self.embed = _param((cfg.vocab, cfg.d_model), dt, device)
+        self.unembed = (None if cfg.tie_embeddings else
+                        _param((cfg.d_model, cfg.vocab), dt, device))
+
+    def init_(self, generator) -> None:
+        embed_init(self.embed, generator)
+        if self.unembed is not None:
+            dense_init(self.unembed, generator)
+
+
+def embedding_init(cfg: ModelConfig, generator) -> Embedding:
+    emb = Embedding(cfg, generator.device)
+    emb.init_(generator)
+    return emb
+
+
+def embed_tokens(emb: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), emb.embed)
+
+
+def unembed_matrix(emb: Embedding) -> torch.Tensor:
+    return emb.embed.T if emb.unembed is None else emb.unembed
+
+
+def logits_last(emb: Embedding, x_last: torch.Tensor) -> torch.Tensor:
+    """Decode-path logits for the final position only, in fp32.
+    x_last: [B, d] -> [B, V]."""
+    return x_last.float() @ unembed_matrix(emb).float()

@@ -1,0 +1,91 @@
+"""Arch registry: ``--arch <id>`` → config + a uniform model API (the
+counterpart of ``repro.models.registry`` for the dense family).
+
+    api = get_model(cfg)
+    params = api.init_params(generator)           # on the generator's device
+    logits, cache = api.prefill(params, tokens, max_len=...)
+    logits, cache = api.decode_step(params, cache, tokens, pos)
+    cache = api.init_cache(batch, seq_len, device)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable
+
+from repro_torch.configs.base import ModelConfig
+
+ARCH_MODULES = {
+    "granite-20b": "granite_20b",
+    "internlm2-1.8b": "internlm2_1_8b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "deepseek-7b": "deepseek_7b",
+}
+
+ALL_ARCHS = tuple(ARCH_MODULES)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in ARCH_MODULES:
+        raise NotImplementedError(
+            f"{arch_id}: only the dense archs {ALL_ARCHS} are ported; the "
+            "other families wait for a later slice (ROADMAP.md §A)")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{ARCH_MODULES[arch_id]}")
+    return mod.CONFIG
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family config for CPU tests (the JAX package's
+    reductions, repro/models/registry.py:48)."""
+    reductions: dict[str, Any] = dict(
+        n_layers=4 if (cfg.slstm_every or cfg.global_attn_layers) else 2,
+        d_model=128,
+        n_heads=4,
+        n_kv_heads=1 if cfg.n_kv_heads == 1 else (
+            4 if cfg.n_kv_heads == cfg.n_heads else 2),
+        d_ff=64 if cfg.n_experts else 256,
+        vocab=512,
+        max_position=4096,
+        dtype="float32",
+    )
+    if cfg.n_experts:
+        reductions.update(n_experts=8, top_k=min(cfg.top_k, 2),
+                          capacity_factor=8.0)
+    if cfg.sliding_window:
+        reductions.update(sliding_window=16)
+    if cfg.global_attn_layers:
+        reductions.update(global_attn_layers=(0, 3))
+    if cfg.n_encoder_layers:
+        reductions.update(n_encoder_layers=2)
+    return dataclasses.replace(cfg, **reductions)
+
+
+@dataclasses.dataclass
+class ModelApi:
+    cfg: ModelConfig
+    init_params: Callable   # (generator) -> params
+    prefill: Callable       # (params, tokens, max_len=None) -> (logits, cache)
+    decode_step: Callable   # (params, cache, tokens, pos) -> (logits, cache)
+    init_cache: Callable    # (batch, seq_len, device) -> cache
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} waits for a later slice (ROADMAP.md §A)")
+    from repro_torch.models import transformer as M
+
+    def prefill(params, tokens, extra_embeds=None, max_len=None):
+        return M.prefill(params, tokens, cfg, extra_embeds=extra_embeds,
+                         max_len=max_len)
+
+    return ModelApi(
+        cfg=cfg,
+        init_params=lambda gen: M.init_params(gen, cfg),
+        prefill=prefill,
+        decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
+        init_cache=lambda b, s, device="cuda": M.init_cache(cfg, b, s,
+                                                            device),
+    )

@@ -1,13 +1,19 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-PyTorch versions, and card runs of the simulator against CPU runs.
+PyTorch versions, card runs of the simulator against CPU runs, and the
+serving engine on the card against its CPU run.
 
 Every test here needs a card and skips without one. The file imports
 nothing of JAX, so it also runs on a GPU host without JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Comparisons are exact (integer pools and integer state; ``grp_p`` too,
-since card and CPU run the same float32 operations in the same order).
+Simulator comparisons are exact (integer pools and integer state;
+``grp_p`` too, since card and CPU run the same float32 operations in the
+same order), and so are the KV compaction's. The attention kernels sum in
+another order than their plain versions: within 1e-5 in fp32 and 2e-2 in
+bf16 (p is rounded to bf16 before P·V, as in the Pallas kernels), and in
+bf16 each output row also within 2e-2 of its own largest value, since
+attention outputs can lie far below the absolute bound.
 """
 
 import numpy as np
@@ -16,10 +22,16 @@ import torch
 
 from repro_torch.core import managers, workloads
 from repro_torch.core.ssd import Geometry, assert_invariants
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.gc_compact import kernel as gc_kernel
 from repro_torch.kernels.gc_compact import ops as gc_ops
+from repro_torch.kernels.paged_attention import kernel as paged_kernel
+from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.kernels.write_path import kernel as wp_kernel
 from repro_torch.kernels.write_path import ops as wp_ops
+from repro_torch.models.registry import get_config, smoke_config
+from repro_torch.serving.engine import Request, ServingEngine
 
 K, B, LBA = 24, 8, 128
 
@@ -152,3 +164,142 @@ def test_card_run_matches_cpu_run(cuda):
     for name, v in card.state.items():
         assert torch.equal(v.cpu(), host.state[name]), name
     assert_invariants(card.state)
+
+
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gc_compact_kernel_matches_plain_version(cuda, dtype):
+    """Overlapping source and destination sets, no-op rows, two layers."""
+    rng = np.random.default_rng(5)
+    n, p, h, d, m = 12, 8, 2, 64, 30
+    pools = [torch.from_numpy(rng.normal(size=(2, n, p, h, d)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(2)]
+    src = rng.choice(n * p, m, replace=False)
+    dst = rng.choice(n * p, m, replace=False)
+    moves = np.stack([src // p, src % p, dst // p, dst % p], 1)
+    moves[rng.random(m) < 0.2, 0] = -1
+    moves = torch.from_numpy(moves.astype(np.int32))
+    got, want = [t.clone() for t in pools], [t.clone() for t in pools]
+    n_launch = gc_kernel.kv_launches
+    gc_kernel.gc_compact_cuda(*got, moves)
+    assert gc_kernel.kv_launches == n_launch + 1
+    gc_ops.gc_compact_ref(*want, moves)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _assert_close(got, want, dtype):
+    """Within the absolute bound, and in bf16 each row of the head
+    dimension within 2e-2 of that row's largest |plain| value."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    assert err.max().item() <= ATTN_TOL[dtype], err.max().item()
+    if dtype == torch.bfloat16:
+        rel = err.amax(-1) / want.abs().amax(-1).clamp_min(1e-30)
+        assert rel.max().item() <= 2e-2, rel.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,d,n,p,m", [
+    (4, 8, 2, 64, 32, 16, 6), (2, 8, 1, 128, 16, 32, 3),
+    (3, 4, 4, 32, 24, 8, 8),
+])
+def test_paged_attention_kernel_matches_plain_version(
+        cuda, dtype, b, hq, hkv, d, n, p, m):
+    rng = np.random.default_rng(b + d)
+    lengths = rng.integers(1, m * p + 1, b).astype(np.int32)
+    tables = np.full((b, m), -1, np.int32)
+    valid = (rng.random((b, m, p)) < 0.7).astype(np.int8)
+    for i in range(b):
+        npages = -(-int(lengths[i]) // p)
+        tables[i, :npages] = rng.choice(n, npages, replace=False)
+        t = int(lengths[i]) - 1
+        valid[i, t // p, t % p] = 1  # every row keeps a valid slot
+    q, kp, vp = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda, dtype) for s in ((b, hq, d), (n, p, hkv, d), (n, p, hkv, d)))
+    rest = [torch.from_numpy(x).to(cuda) for x in (tables, lengths, valid)]
+    n_launch = paged_kernel.launches
+    got = paged_kernel.paged_attention_cuda(q, kp, vp, *rest)
+    assert paged_kernel.launches == n_launch + 1
+    want = paged_ref.paged_attention_ref(q, kp, vp, *rest)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", [
+    (1, 128, 128, 4, 4, 64, True, 0), (2, 160, 160, 8, 2, 32, True, 0),
+    (1, 192, 192, 4, 2, 128, True, 48), (2, 64, 160, 2, 2, 128, False, 0),
+])
+def test_flash_attention_kernel_matches_plain_version(
+        cuda, dtype, b, sq, skv, hq, hkv, d, causal, window):
+    rng = np.random.default_rng(sq + d)
+    q, k, v = (torch.from_numpy((rng.normal(size=s) * 0.5).astype(
+        np.float32)).to(cuda, dtype) for s in (
+            (b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    n_launch = flash_kernel.launches
+    got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window)
+    assert flash_kernel.launches == n_launch + 1
+    want = flash_ref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_empty_calls_launch_and_count_nothing(cuda):
+    """A wrapper counts a launch only where it launches its kernel."""
+    pools = [torch.zeros((2, 4, 8, 2, 32), device=cuda) for _ in range(2)]
+    n_launch = gc_kernel.kv_launches
+    gc_kernel.gc_compact_cuda(*pools, torch.zeros((0, 4), dtype=torch.int32))
+    assert gc_kernel.kv_launches == n_launch
+    q = torch.zeros((0, 4, 32), device=cuda)
+    kp = torch.zeros((4, 8, 2, 32), device=cuda)
+    rest = [torch.zeros(s, dtype=t, device=cuda) for s, t in (
+        ((0, 3), torch.int32), ((0,), torch.int32), ((0, 3, 8), torch.int8))]
+    n_launch = paged_kernel.launches
+    assert paged_kernel.paged_attention_cuda(q, kp, kp, *rest).shape == (
+        0, 4, 32)
+    assert paged_kernel.launches == n_launch
+    q = torch.zeros((0, 16, 4, 32), device=cuda)
+    kv = torch.zeros((0, 16, 2, 32), device=cuda)
+    n_launch = flash_kernel.launches
+    assert flash_kernel.flash_attention_cuda(q, kv, kv).shape == q.shape
+    assert flash_kernel.launches == n_launch
+
+
+@pytest.mark.cuda
+def test_card_engine_matches_cpu_engine(cuda):
+    """The serving engine at smoke width in fp32 on the card and on the
+    CPU, with a pool tight enough to compact: the same control plane and
+    the same generated tokens, through both serving kernels."""
+    cfg = smoke_config(get_config("internlm2-1.8b"))
+    runs = []
+    for device in (cuda, "cpu"):
+        eng = ServingEngine(cfg, n_blocks=48, page=8, max_pages_per_seq=16,
+                            max_batch=4, device=device)
+        if device == "cpu":  # the card engine's weights
+            eng.params.load_state_dict(runs[0][2])
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab, 12).astype(np.int32), max_new=48,
+            policy=["append", "h2o:50", "window:16"][rid % 3])
+            for rid in range(8)]
+        for r in reqs:
+            eng.submit(r)
+        n_launch = (paged_kernel.launches, gc_kernel.kv_launches)
+        summary = eng.run_until_drained(max_steps=400)
+        eng.manager.check_invariants()
+        launched = (paged_kernel.launches - n_launch[0],
+                    gc_kernel.kv_launches - n_launch[1])
+        runs.append((summary, [r.out for r in reqs], {
+            k: v.cpu() for k, v in eng.params.state_dict().items()},
+            launched))
+    assert runs[0][0] == runs[1][0] and runs[0][0]["copied"] > 0
+    assert runs[0][1] == runs[1][1]
+    assert runs[0][3][0] == cfg.n_layers * runs[0][0]["steps"]
+    assert runs[0][3][1] > 0 and runs[1][3] == (0, 0)
