@@ -6,7 +6,10 @@
 Phases, one JSON line each; any failed check exits non-zero:
 
   env         the card (nvidia-smi name and power limit), torch and CUDA
-              versions, and the wall time of building the kernels;
+              versions, the wall time of building the kernels, and for the
+              two attention kernels ptxas's registers, spills and static
+              shared memory and the tensor-core instructions (HMMA) in
+              their SASS: the bf16 flash kernel must have some;
   kernels     each hand-written kernel against its plain PyTorch version on
               random valid inputs: the simulator's three at Table-2 widths,
               for one drive and for 64, equal (integers, exact); the serving
@@ -16,6 +19,9 @@ Phases, one JSON line each; any failed check exits non-zero:
               least time the card could take (bytes over HBM, or operations
               over the peak rate), and for flash_attention PyTorch's
               scaled_dot_product_attention on the same inputs as a yardstick;
+              the two attention kernels and SDPA are also timed queued (see
+              time_ms), and paged_attention with L2 cold, rotating over four
+              pool pairs (200 MB in bf16, four times the L2);
   equiv_small six preset/workload pairs at Geometry(4, 32, 8) on the card
               and on the CPU (static wolf and single_group, fdp on the §6.2
               swap, wolf_dynamic on tpcc_like, and TRIM op streams):
@@ -47,8 +53,9 @@ Phases, one JSON line each; any failed check exits non-zero:
               logits must agree within 2e-3 at every step;
   profile     short runs of the simulator's two Table-2 paths and of the
               serving engine under torch.profiler: device busy time against
-              wall time (the idle share), kernels per event, and the kernels
-              that take the most device time.
+              wall time (the idle share), kernels per event, the kernels
+              that take the most device time, and in the decode window
+              paged_attention's device time and share of busy time.
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -58,8 +65,11 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -96,19 +106,103 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int) -> float:
-    """Mean ms per call of ``fn`` over ``iters`` warm calls (CUDA events)."""
+def time_ms(torch, fn, iters: int, queued: bool = False) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` warm calls (CUDA events).
+    Unqueued, a call that is shorter on the card than its host cost
+    (argument checks, the ctypes call) reads as that cost. ``queued``: the
+    card first sleeps while the host enqueues every call, so the calls run
+    back to back and the host's cost drops out: device time."""
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:  # ~0.1 ms of sleep a call at ~2 GHz
+        torch.cuda._sleep(iters * 200_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_both(torch, key: str, fn, iters: int) -> dict:
+    """``time_ms`` both ways: {key: unqueued, key + "_queued": queued}."""
+    return {key: time_ms(torch, fn, iters),
+            key + "_queued": time_ms(torch, fn, iters, queued=True)}
+
+
+ATTENTION_KERNELS = ("flash_bf16_kernel", "flash_fp32_kernel",
+                     "paged_attention_kernel")
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, as in
+    flash_bf16_kernel<128> or paged_attention_kernel<bf16, 2>."""
+    m = re.search(rf"({'|'.join(ATTENTION_KERNELS)})I(.*?)EE", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)(?=L|$)",
+                      m.group(2) + "E")
+    words = [n or ("bf16" if bf else "fp32") for n, bf, _ in args]
+    return f"{m.group(1)}<{', '.join(words)}>"
+
+
+def parse_ptxas(log: str) -> dict:
+    """{kernel function (mangled): {"registers", "spill_stores",
+    "spill_loads", "stack", "static_smem"}} from ``ptxas -v`` output."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            fn = report.setdefault(m.group(1), {})
+        elif fn is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            fn.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                      spill_loads=int(m.group(3)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            fn["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            fn["static_smem"] = int(s.group(1)) if s else 0
+    return report
+
+
+def count_opcode(sass: str, opcode: str) -> dict:
+    """{kernel function (mangled): instructions with ``opcode``} in the
+    text of ``cuobjdump -sass``."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if m := re.match(r"\s*Function : (\w+)", line):
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def build_report(build) -> dict:
+    """ptxas's figures (from the build's nvcc log) and the SASS's HMMA
+    count for the two attention kernels, by kernel instantiation; fails
+    unless every bf16 flash instantiation runs on the tensor cores."""
+    cuobjdump = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    report = {}
+    for src in ("flash_attention", "paged_attention"):
+        lib = build.library(src)
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        hmma = count_opcode(sass, "HMMA")
+        for fn, info in parse_ptxas(
+                lib.with_suffix(".log").read_text()).items():
+            report[short_name(fn)] = {**info, "hmma": hmma.get(fn)}
+    bf16 = [n for n in report if "flash_bf16_kernel" in n]
+    check(bf16 and all(report[n]["hmma"] for n in bf16),
+          f"flash_attention: bf16 kernels without HMMA: "
+          f"{ {n: report[n]['hmma'] for n in bf16} }")
+    return report
 
 
 # -- kernel inputs ----------------------------------------------------------
@@ -210,16 +304,20 @@ def gc_inputs(torch, rng, dtype, kv, moves=512):
 
 
 def paged_inputs(torch, rng, dtype, kv, b, hq, m):
-    """One decode token per sequence over the pool: lengths 256-512, a
-    random block per page, about a fifth of the slots holes (the newest
-    token always valid)."""
+    """One decode token per sequence over the pool, laid out as the block
+    manager lays it out: every page its own block (one permutation of the
+    pool dealt out across the batch). Lengths 256-384, so that the batch's
+    pages (at most 24 a sequence) fit the 768 blocks; about a fifth of the
+    slots holes (the newest token always valid)."""
     n, p, hkv, d = kv["blocks"], kv["page"], kv["kv_heads"], kv["d_head"]
-    lengths = rng.integers(256, 513, b).astype(np.int32)
+    lengths = rng.integers(256, 385, b).astype(np.int32)
+    pages = -(-lengths // p)
+    check(pages.sum() <= n, f"paged inputs: {pages.sum()} pages > {n}")
+    blocks = np.split(rng.permutation(n)[:pages.sum()], np.cumsum(pages)[:-1])
     tables = np.full((b, m), -1, np.int32)
     valid = (rng.random((b, m, p)) < 0.8).astype(np.int8)
     for i in range(b):
-        pages = -(-int(lengths[i]) // p)
-        tables[i, :pages] = rng.choice(n, pages, replace=False)
+        tables[i, :pages[i]] = blocks[i]
         t = int(lengths[i]) - 1
         valid[i, t // p, t % p] = 1
     q = torch.randn((b, hq, d), device="cuda").to(dtype)
@@ -304,6 +402,15 @@ def serving_kernels(torch, args, card):
         q, (kp, vp), rest = paged_inputs(
             torch, rng, dtype, kv, SERVE["max_batch"], cfg.n_heads,
             SERVE["max_pages_per_seq"])
+        # three more pool pairs for the cold-L2 rotation: four pairs are
+        # four times the L2 in bf16, as the serving path's 24 layers are
+        cold = [(kp, vp)] + [tuple(
+            torch.randn_like(kp) for _ in range(2)) for _ in range(3)]
+        pairs = itertools.cycle(cold)
+
+        def cold_call():
+            paged_attention_cuda(q, *next(pairs), *rest)
+
         got = paged_attention_cuda(q, kp, vp, *rest)
         want = paged_attention_ref(q, kp, vp, *rest)
         err = (got.float() - want.float()).abs().max().item()
@@ -315,7 +422,8 @@ def serving_kernels(torch, args, card):
         starts = torch.arange(tables.shape[1])[None] * kv["page"]
         pages = int(((tables >= 0) & (starts < lengths[:, None])).sum())
         page_bytes = kv["page"] * kv["kv_heads"] * kv["d_head"] * esize
-        # K and V of every page read, q in and out, tables, lengths, holes
+        # K and V of every page read (each its own block), q in and out,
+        # tables, lengths, holes
         nbytes = (2 * pages * page_bytes + 2 * q.numel() * esize
                   + 4 * tables.numel() + 4 * len(lengths) + rest[2].numel())
         line = {
@@ -323,16 +431,22 @@ def serving_kernels(torch, args, card):
             "batch": q.shape[0], "q_heads": q.shape[1], **kv,
             "max_pages": tables.shape[1], "pages_read": pages,
             "max_abs_err": err, "max_row_rel_err": rel,
-            "kernel_ms": time_ms(
-                torch, lambda: paged_attention_cuda(q, kp, vp, *rest), iters),
+            **time_both(torch, "kernel_ms", lambda: paged_attention_cuda(
+                q, kp, vp, *rest), iters),
+            **time_both(torch, "kernel_ms_cold", cold_call, iters),
+            "cold_pool_gb": sum(t.numel() * t.element_size()
+                                for pair in cold for t in pair) / 1e9,
             "plain_ms": time_ms(
                 torch, lambda: paged_attention_ref(q, kp, vp, *rest), iters),
             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None, "card": card,
         }
+        # the rates of the card's own time (queued)
+        line["gb_per_s"] = nbytes / line["kernel_ms_queued"] / 1e6
+        line["gb_per_s_cold"] = nbytes / line["kernel_ms_cold_queued"] / 1e6
         emit(line)
         results[("paged_attention", tname)] = line
-        del q, kp, vp, rest, got, want
+        del q, kp, vp, rest, got, want, cold
 
         q, k, v = flash_inputs(torch, dtype, cfg.n_heads, cfg.n_kv_heads,
                                cfg.d_head)
@@ -356,19 +470,20 @@ def serving_kernels(torch, args, card):
             "batch": b, "seq": s, "q_heads": hq, "kv_heads": k.shape[2],
             "d_head": d, "causal": True, "max_abs_err": err,
             "max_row_rel_err": rel,
-            "kernel_ms": time_ms(
-                torch, lambda: flash_attention_cuda(q, k, v, causal=True),
-                iters),
+            **time_both(torch, "kernel_ms", lambda: flash_attention_cuda(
+                q, k, v, causal=True), iters),
             "plain_ms": time_ms(
                 torch, lambda: flash_attention_ref(q, k, v, causal=True),
                 iters),
             "bytes": nbytes, "flops": flops, "bound_ms": bounds[bound_by],
             "bound_by": bound_by,
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), iters),
+            **time_both(torch, "library_ms", lambda: (
+                F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)), iters),
             "card": card,
         }
-        line["tflops"] = flops / line["kernel_ms"] / 1e9
+        # the rate of the card's own time (queued)
+        line["tflops"] = flops / line["kernel_ms_queued"] / 1e9
         emit(line)
         results[("flash_attention", tname)] = line
         del q, k, v, got, want
@@ -973,11 +1088,21 @@ def phase_profile(torch, args, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stats = kernel_stats(torch, prof, wall)
+    paged = [e for e in prof.key_averages()
+             if "paged_attention_kernel" in e.key]
+    check(paged, "profile: no paged_attention kernel in the decode window")
+    paged_s = sum(_device_us(e) for e in paged) / 1e6
+    busy = stats["device_busy_s"]
     emit({
         "phase": "profile", "path": "serve_full_width",
         "arch": eng.cfg.arch_id, "batch": SERVE["max_batch"],
         "decode_steps": steps, **stats,
-        "kernels_per_step": stats["launches"] / steps, "card": card,
+        "kernels_per_step": stats["launches"] / steps,
+        "paged_attention_device_s": paged_s,
+        "paged_attention_launches": sum(e.count for e in paged),
+        "paged_attention_busy_share": paged_s / busy
+        if isinstance(busy, float) and busy > 0 else "not measured",
+        "card": card,
     })
     del eng
     torch.cuda.empty_cache()
@@ -1009,6 +1134,7 @@ def main() -> None:
         "device": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "kernel_build_s": build_s,
+        "attention_kernels": build_report(_build),
     })
     seconds = {}
 
@@ -1050,7 +1176,7 @@ def main() -> None:
         sizes = (1, 64) if sim else ("float32", "bfloat16")
         k1 = kernels[(name, case[name])]
         by_path = {p: line["launches"][name] for p, line in paths.items()}
-        summary.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
@@ -1062,7 +1188,20 @@ def main() -> None:
             "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
             "library_ms": k1["library_ms"],
-        })
+        }
+        if name in ("paged_attention", "flash_attention"):
+            row["ms_queued"] = k1["kernel_ms_queued"]
+        if name == "paged_attention":
+            row["ms_cold"] = k1["kernel_ms_cold"]
+            row["ms_cold_queued"] = k1["kernel_ms_cold_queued"]
+        if name == "flash_attention":  # the model's type, beside fp32's
+            row["library_ms_queued"] = k1["library_ms_queued"]
+            kb = kernels[(name, "bfloat16")]
+            row["bfloat16"] = {k: kb[k] for k in (
+                "kernel_ms", "kernel_ms_queued", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_ms_queued", "tflops",
+                "max_abs_err", "max_row_rel_err")}
+        summary.append(row)
     emit({"kernels": summary, "phase_s": seconds,
           "script_s": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)

@@ -6,7 +6,9 @@ PyTorch headers, so a build takes seconds. All sources build at first use,
 one ``nvcc`` process each, started together. A library's file name carries
 a hash of its source, so an edited source builds anew and an unchanged one
 is loaded from the build directory (``kernels/_build_out/``, listed in
-``.gitignore``).
+``.gitignore``). ``nvcc`` runs with ``-Xptxas -v`` and keeps what it
+printed (each kernel's registers, shared memory and spills) in a log beside
+the library.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -24,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build_out"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -59,7 +61,8 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _target(name: str) -> pathlib.Path:
+def library(name: str) -> pathlib.Path:
+    """The built library of source ``name`` (its nvcc log: suffix .log)."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -69,13 +72,13 @@ def build_all() -> float:
     """Compile every source whose library is missing, all in parallel.
     Returns the wall seconds taken; raises with nvcc's output on failure."""
     t0 = time.perf_counter()
-    todo = [n for n in SIGNATURES if not _target(n).exists()]
+    todo = [n for n in SIGNATURES if not library(n).exists()]
     if todo:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
         for name in todo:
-            tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+            tmp = library(name).with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
             procs.append((name, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -87,7 +90,8 @@ def build_all() -> float:
             if proc.returncode != 0:
                 failed.append(f"{name}.cu (rc {proc.returncode}):\n{out}")
             else:
-                os.replace(tmp, _target(name))
+                library(name).with_suffix(".log").write_text(out)
+                os.replace(tmp, library(name))
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -96,9 +100,9 @@ def build_all() -> float:
 def launcher(name: str):
     """The ctypes function of kernel ``name``, building at first use."""
     if name not in _loaded:
-        if not _target(name).exists():
+        if not library(name).exists():
             build_all()
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library(name)))
         symbol, argtypes = SIGNATURES[name]
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
@@ -123,6 +127,14 @@ def check_tensors(op: str, **specs) -> None:
         device = t.device if device is None else device
         if t.device != device:
             raise ValueError(f"{op}: {name} is on {t.device}, not {device}")
+
+
+def check_aligned(op: str, **tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary: the kernels
+    load 16 bytes a thread."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} is not 16-byte aligned")
 
 
 def check_launch(name: str, err: int) -> None:

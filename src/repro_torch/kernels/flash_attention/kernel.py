@@ -1,6 +1,7 @@
 """ctypes binding of the flash-attention kernel
 (``kernels/csrc/flash_attention.cu``), the port of the Pallas TPU kernel in
-``repro/kernels/flash_attention/kernel.py`` (``flash_attention``)."""
+``repro/kernels/flash_attention/kernel.py`` (``flash_attention``): bf16 runs
+on the tensor cores, fp32 on the CUDA cores in full fp32."""
 
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     check_args(q, k, v)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_cuda: tensors on {q.device}")
+    _build.check_aligned("flash_attention", q=q, k=k, v=v)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

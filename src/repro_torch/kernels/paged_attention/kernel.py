@@ -46,6 +46,8 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
     check_args(q, k_pool, v_pool, block_tables, lengths, slot_valid)
     if not q.is_cuda:
         raise ValueError(f"paged_attention_cuda: tensors on {q.device}")
+    _build.check_aligned("paged_attention", q=q, k_pool=k_pool,
+                         v_pool=v_pool)
     b, hq, d = q.shape
     n, p, hkv, _ = k_pool.shape
     out = torch.empty_like(q)

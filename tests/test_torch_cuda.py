@@ -204,16 +204,41 @@ def _assert_close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hq,hkv,d,n,p,m", [
-    (4, 8, 2, 64, 32, 16, 6), (2, 8, 1, 128, 16, 32, 3),
-    (3, 4, 4, 32, 24, 8, 8),
+@pytest.mark.parametrize("b,hq,hkv,d,n,p,m,lengths,holes", [
+    (4, 8, 2, 64, 32, 16, 6, None, 0.3),
+    (2, 8, 1, 128, 16, 32, 3, None, 0.3),
+    (3, 4, 4, 32, 24, 8, 8, None, 0.3),
+    # lengths 1, P and M * P
+    (3, 8, 2, 64, 32, 16, 6, (1, 16, 96), 0.3),
+    # fewer pages than the kernel's 8 warps, G = 1
+    (2, 8, 8, 128, 16, 16, 4, None, 0.3),
+    # a 64-page table at the serving path's heads
+    (2, 16, 8, 128, 160, 16, 64, (1024, 700), 0.2),
+    # every slot a hole but the newest (whole warps see only holes), G = 8
+    (4, 16, 2, 128, 64, 16, 8, None, 1.0),
+    # G = 8 at D = 32
+    (2, 8, 1, 32, 24, 8, 8, (64, 33), 0.3),
 ])
 def test_paged_attention_kernel_matches_plain_version(
-        cuda, dtype, b, hq, hkv, d, n, p, m):
+        cuda, dtype, b, hq, hkv, d, n, p, m, lengths, holes):
+    """Random tables (distinct blocks per sequence, -1 past the length),
+    lengths in [1, M * P] unless given, a ``holes`` share of slots
+    invalid (the newest token always valid)."""
+    args = _paged_inputs(cuda, dtype, b, hq, hkv, d, n, p, m, lengths, holes)
+    n_launch = paged_kernel.launches
+    got = paged_kernel.paged_attention_cuda(*args)
+    assert paged_kernel.launches == n_launch + 1
+    want = paged_ref.paged_attention_ref(*args)
+    _assert_close(got, want, dtype)
+
+
+def _paged_inputs(cuda, dtype, b, hq, hkv, d, n, p, m, lengths, holes):
     rng = np.random.default_rng(b + d)
-    lengths = rng.integers(1, m * p + 1, b).astype(np.int32)
+    if lengths is None:
+        lengths = rng.integers(1, m * p + 1, b)
+    lengths = np.asarray(lengths, np.int32)
     tables = np.full((b, m), -1, np.int32)
-    valid = (rng.random((b, m, p)) < 0.7).astype(np.int8)
+    valid = (rng.random((b, m, p)) < 1 - holes).astype(np.int8)
     for i in range(b):
         npages = -(-int(lengths[i]) // p)
         tables[i, :npages] = rng.choice(n, npages, replace=False)
@@ -222,11 +247,28 @@ def test_paged_attention_kernel_matches_plain_version(
     q, kp, vp = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
         cuda, dtype) for s in ((b, hq, d), (n, p, hkv, d), (n, p, hkv, d)))
     rest = [torch.from_numpy(x).to(cuda) for x in (tables, lengths, valid)]
+    return q, kp, vp, *rest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,ok", [
+    (torch.bfloat16, 256, True), (torch.bfloat16, 16, True),
+    (torch.bfloat16, 96, False), (torch.float32, 256, False),
+])
+def test_paged_attention_kernel_head_sizes(cuda, dtype, d, ok):
+    """The kernel takes any d_head whose row is a power of two of 16-byte
+    lanes, up to a warp's 32, and refuses the rest at launch, counting no
+    launch."""
+    args = _paged_inputs(cuda, dtype, 2, 8, 2, d, 24, 16, 4, None, 0.3)
     n_launch = paged_kernel.launches
-    got = paged_kernel.paged_attention_cuda(q, kp, vp, *rest)
+    if not ok:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            paged_kernel.paged_attention_cuda(*args)
+        assert paged_kernel.launches == n_launch
+        return
+    got = paged_kernel.paged_attention_cuda(*args)
     assert paged_kernel.launches == n_launch + 1
-    want = paged_ref.paged_attention_ref(q, kp, vp, *rest)
-    _assert_close(got, want, dtype)
+    _assert_close(got, paged_ref.paged_attention_ref(*args), dtype)
 
 
 @pytest.mark.cuda
@@ -234,6 +276,15 @@ def test_paged_attention_kernel_matches_plain_version(
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", [
     (1, 128, 128, 4, 4, 64, True, 0), (2, 160, 160, 8, 2, 32, True, 0),
     (1, 192, 192, 4, 2, 128, True, 48), (2, 64, 160, 2, 2, 128, False, 0),
+    # lengths off the 64-row tiles, G = 8
+    (1, 200, 200, 8, 1, 128, True, 0),
+    # a window narrower than a tile, G = 4, B > 1
+    (2, 333, 333, 4, 1, 64, True, 16),
+    # non-causal with Sq < Skv, G = 1
+    (1, 200, 333, 4, 4, 32, False, 0),
+    # a narrow window at G = 8, B > 1; a window across tiles at D = 32
+    (2, 333, 333, 16, 2, 128, True, 16),
+    (1, 257, 257, 8, 2, 32, True, 70),
 ])
 def test_flash_attention_kernel_matches_plain_version(
         cuda, dtype, b, sq, skv, hq, hkv, d, causal, window):

@@ -223,5 +223,5 @@ def test_every_kernel_source_has_a_launcher():
     for name in sources:
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {_build.SIGNATURES[name][0]}(' in text
-        assert _build._target(name).parent == _build.BUILD_DIR
+        assert _build.library(name).parent == _build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
