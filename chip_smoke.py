@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py [--seed N] [--writes N] [--churn-events N]
                           [--small-writes N] [--iters N] [--profile-writes N]
+                          [--run-warm N]
 
 Phases, one JSON line each; any failed check exits non-zero:
 
   env         the card (nvidia-smi name and power limit), torch and CUDA
               versions, the wall time of building the kernels, and for the
-              two attention kernels ptxas's registers, spills and static
-              shared memory and the tensor-core instructions (HMMA) in
-              their SASS: the bf16 flash kernel must have some;
+              two attention kernels and write_run ptxas's registers, spills
+              and static shared memory and the tensor-core instructions
+              (HMMA) in their SASS: the bf16 flash kernel must have some;
   kernels     each hand-written kernel against its plain PyTorch version on
               random valid inputs: the simulator's three at Table-2 widths,
               for one drive and for 64, equal (integers, exact); the serving
@@ -21,7 +22,12 @@ Phases, one JSON line each; any failed check exits non-zero:
               scaled_dot_product_attention on the same inputs as a yardstick;
               the two attention kernels and SDPA are also timed queued (see
               time_ms), and paged_attention with L2 cold, rotating over four
-              pool pairs (200 MB in bf16, four times the L2);
+              pool pairs (200 MB in bf16, four times the L2); the run kernel
+              write_run from Table-2 states reached on the card (the two
+              paths' configurations after --run-warm events), one drive and
+              64, each launch from a fresh copy of the state and timed
+              alone: ms, events per launch, us per event, exact against
+              write_run_ref;
   equiv_small six preset/workload pairs at Geometry(4, 32, 8) on the card
               and on the CPU (static wolf and single_group, fdp on the §6.2
               swap, wolf_dynamic on tpcc_like, and TRIM op streams):
@@ -30,7 +36,11 @@ Phases, one JSON line each; any failed check exits non-zero:
               pages, LBA/PBA 0.70) under wolf on two_modal, through
               managers.simulate on the card with the kernels' launch counts
               set to 0 just before and read just after, then the same seed
-              on the CPU: traces must agree and invariants hold;
+              on the CPU: traces and host syncs must agree and invariants
+              hold; every fast write lands through write_run (runs,
+              events per run and the writes that stopped a run, heavy or
+              for a bloom rotation alone, reported), none through
+              apply_write;
   full_width_churn  the same drive under wolf_dynamic (bloom detector,
               §5.6 demotion, §5.2 groups) on the tpcc_churn op stream, card
               then CPU, counts set to 0 just before the card run: traces and
@@ -51,11 +61,12 @@ Phases, one JSON line each; any failed check exits non-zero:
               a compaction (the gc_compact kernel) and one more decode
               against the dense cache with the evicted positions masked:
               logits must agree within 2e-3 at every step;
-  profile     short runs of the simulator's two Table-2 paths and of the
-              serving engine under torch.profiler: device busy time against
-              wall time (the idle share), kernels per event, the kernels
-              that take the most device time, and in the decode window
-              paged_attention's device time and share of busy time.
+  profile     short runs of the simulator's two Table-2 paths (a fresh
+              drive's first events, and a window after --run-warm events)
+              and of the serving engine under torch.profiler: device busy
+              time against wall time (the idle share), kernels per event,
+              the kernels that take the most device time, and in the decode
+              window paged_attention's device time and share of busy time.
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -65,6 +76,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -133,17 +145,18 @@ def time_both(torch, key: str, fn, iters: int) -> dict:
             key + "_queued": time_ms(torch, fn, iters, queued=True)}
 
 
-ATTENTION_KERNELS = ("flash_bf16_kernel", "flash_fp32_kernel",
-                     "paged_attention_kernel")
+NAMED_KERNELS = ("flash_bf16_kernel", "flash_fp32_kernel",
+                 "paged_attention_kernel", "write_run_kernel")
 
 
 def short_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name, as in
-    flash_bf16_kernel<128> or paged_attention_kernel<bf16, 2>."""
-    m = re.search(rf"({'|'.join(ATTENTION_KERNELS)})I(.*?)EE", mangled)
+    flash_bf16_kernel<128>, paged_attention_kernel<bf16, 2> or
+    write_run_kernel<2, 1, 1>."""
+    m = re.search(rf"({'|'.join(NAMED_KERNELS)})I(.*?)EE", mangled)
     if not m:
         return mangled
-    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)(?=L|$)",
+    args = re.findall(r"L[ib](\d+)E|(13__nv_bfloat16)|(f)(?=L|$)",
                       m.group(2) + "E")
     words = [n or ("bf16" if bf else "fp32") for n, bf, _ in args]
     return f"{m.group(1)}<{', '.join(words)}>"
@@ -184,12 +197,13 @@ def count_opcode(sass: str, opcode: str) -> dict:
 
 def build_report(build) -> dict:
     """ptxas's figures (from the build's nvcc log) and the SASS's HMMA
-    count for the two attention kernels, by kernel instantiation; fails
-    unless every bf16 flash instantiation runs on the tensor cores."""
+    count for the two attention kernels and the run kernel, by kernel
+    instantiation; fails unless every bf16 flash instantiation runs on the
+    tensor cores."""
     cuobjdump = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     report = {}
-    for src in ("flash_attention", "paged_attention"):
+    for src in ("flash_attention", "paged_attention", "write_run"):
         lib = build.library(src)
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                               capture_output=True, text=True, check=True,
@@ -491,6 +505,230 @@ def serving_kernels(torch, args, card):
     return results
 
 
+# the run kernel's cases: each path's configuration, in the state a run of
+# --run-warm of its events leaves on the card
+RUN_CASES = {
+    "full_width": ("wolf", "two_modal", False),
+    "full_width_churn": ("wolf_dynamic", "tpcc_churn", True),
+}
+RUN_EVENTS = 2048  # each drive's segment: longer than any run
+
+
+def run_phase(workloads, lba_pages, workload, n):
+    if workload == "two_modal":
+        return workloads.two_modal(lba_pages, n, p_hot=0.9, frac_hot=0.5)
+    return workloads.tpcc_churn(lba_pages, n)
+
+
+_WARM = {}  # case -> its warmed drive, made once
+
+
+def warm_drive(args, case):
+    """A Table-2 drive in ``case``'s configuration after --run-warm of its
+    events on the card: (ctx, state, run_kw, events), where run_kw is what
+    simulator.run takes beside the events and events(n, seed) draws n
+    more of them (ops, lbas) from the seed. Each case is warmed once; each
+    call returns its own copy of the state."""
+    if case not in _WARM:
+        _WARM[case] = _warm(args, case)
+    ctx, st, run_kw, events = _WARM[case]
+    copy = dataclasses.replace(st, **{k: v.clone() for k, v in st.items()})
+    return ctx, copy, run_kw, events
+
+
+def _warm(args, case):
+    from repro_torch.core import managers, simulator, workloads
+    from repro_torch.core.ssd import Geometry
+
+    preset, workload, trim = RUN_CASES[case]
+    geom = Geometry(**TABLE2)
+    mcfg = getattr(managers, preset)()
+
+    def events(n, seed):
+        return run_phase(workloads, geom.lba_pages, workload, n).sample_ops(
+            np.random.default_rng(seed))
+
+    st, n_groups, assumed_p, fdp_rate, rates, pg0 = managers.build_drive(
+        geom, mcfg, [run_phase(workloads, geom.lba_pages, workload, 1)],
+        device="cuda")
+    ctx = simulator.SimContext(geom, mcfg, n_groups, with_trim=trim)
+    run_kw = dict(page_rate=rates[0], assumed_p=assumed_p, fdp_rate=fdp_rate,
+                  page_group0=pg0 if trim else None)
+    if args.run_warm:
+        ops, lbas = events(args.run_warm, args.seed)
+        st, _ = simulator.run(ctx, st, lbas, ops=ops if trim else None,
+                              device="cuda", **run_kw)
+    return ctx, st, run_kw, events
+
+
+def run_inputs(torch, args, case, d):
+    """write_run's arguments for d drives, each in the state --run-warm
+    events of ``case`` leave on the card, each with its own next
+    RUN_EVENTS events; and the run's mode."""
+    from repro_torch.core import simulator
+    from repro_torch.kernels.write_run.kernel import COUNTERS, STATE_FIELDS
+
+    ctx, st, run_kw, events = warm_drive(args, case)
+    mcfg, trim = ctx.mcfg, ctx.with_trim
+    policy = simulator.policy_from_config(ctx, "cuda", **run_kw)
+    rows = [events(RUN_EVENTS, [args.seed, i]) for i in range(d)]
+
+    def drives(t):
+        return t.repeat(d, *[1] * (t.dim() - 1)).contiguous()
+
+    inputs = dict(
+        lbas=torch.from_numpy(np.stack([lb for _, lb in rows]).astype(
+            np.int64)).cuda(),
+        ops=torch.from_numpy(np.stack([o for o, _ in rows]).astype(
+            np.uint8)).cuda() if trim else None,
+        start=drives(torch.tensor([[0, int(st.n_app)]], device="cuda")),
+        state={k: drives(getattr(st, k).view(1) if k in COUNTERS
+                         else getattr(st, k)[None]) for k in STATE_FIELDS},
+        policy={k: drives(policy[k][None]) for k in (
+            "page_rate", "fdp_rate", "page_group0") if k in policy},
+    )
+    mode = dict(h=ctx.h, trace_every=1, td_mode=mcfg.td_mode,
+                movement_ops=mcfg.movement_ops,
+                bloom_rotate_min_writes=mcfg.bloom_rotate_min_writes)
+    return inputs, mode
+
+
+def run_fresh(torch, inputs, d):
+    """A copy of the inputs to land one launch on: the state copied, stop
+    and the trace new."""
+    args = {k: v for k, v in inputs.items() if k not in ("state", "policy")}
+    args["state"] = {k: v.clone() for k, v in inputs["state"].items()}
+    args["policy"] = inputs["policy"]
+    args["stop"] = torch.full((d, 3), -1, dtype=torch.int64, device="cuda")
+    for k in ("app", "mig"):
+        args[k] = torch.full((d, RUN_EVENTS), -1, dtype=torch.int32,
+                             device="cuda")
+    return args
+
+
+def run_bytes(inputs, after, stop, mode) -> int:
+    """The least bytes write_run must move for the runs it landed, each
+    element read once and each written once, none twice (see
+    write_run.cu). Written: every state element the runs changed, counted
+    from the state before and after, read too where the new value needs
+    the old (counters, fill, live, group sizes); the trace and stop. Read
+    only: each event up to the one that stopped the run (lba, op), the
+    map entry of each distinct page, and of each distinct page written its
+    detector input (FDP rate, or two bits of each bloom filter) and, when
+    it was unmapped, its layout group; the group of each distinct block
+    the runs' pages left; the open block of each group written; per drive
+    start, the pool, n_mig and the group flags, the surpluses under
+    movement, FDP's group rates."""
+    from repro_torch.core.workloads import OP_TRIM
+
+    before = inputs["state"]
+    lbas, ops, start = inputs["lbas"], inputs["ops"], inputs["start"]
+    d, n = lbas.shape
+    g = before["grp_size"].shape[-1]
+    b = before["slot_lba"].shape[-1]
+    e, td = mode["trace_every"], mode["td_mode"]
+    overwritten = ("page_map", "slot_lba", "valid", "bloom_active")
+    nbytes = 0
+    for k, v in before.items():
+        changed = int((after[k] != v).sum())
+        nbytes += changed * v.element_size() * (1 if k in overwritten else 2)
+    per_page = {"static": 0, "fdp": 4, "bloom": 4}[td]
+    for i in range(d):
+        j0, s = int(start[i, 0]), int(stop[i, 0])
+        nbytes += (min(s + 1, n) - j0) * (8 + (ops is not None))
+        nbytes += 8 * (s // e - j0 // e)
+        pm = before["page_map"][i]
+        pages = lbas[i, j0:s].unique()
+        nbytes += 4 * pages.numel()
+        old = pm[pages]
+        nbytes += 4 * (old[old >= 0] // b).unique().numel()
+        written = lbas[i, j0:s] if ops is None else lbas[i, j0:s][
+            ops[i, j0:s] != OP_TRIM]
+        written = written.unique()
+        nbytes += per_page * written.numel()
+        if ops is not None:
+            nbytes += 8 * int((pm[written] < 0).sum())
+        nbytes += 4 * int((after["grp_writes"][i]
+                           != before["grp_writes"][i]).sum())
+    per_drive = 16 + 24 + 4 + 4 + g
+    per_drive += 4 * g * (bool(mode["movement_ops"]) + (td == "fdp"))
+    return nbytes + d * per_drive
+
+
+def run_kernels(torch, args, card):
+    """write_run at D = 1 and 64 in each path's configuration: exact
+    against write_run_ref on the same inputs (stop, trace, every state
+    field), then each launch timed alone from a fresh copy of the state,
+    both with the host's cost (unqueued) and without (queued behind a
+    sleep of the card)."""
+    from repro_torch.kernels.write_run import kernel as wr_kernel
+    from repro_torch.kernels.write_run.ref import write_run_ref
+
+    results = {}
+    for case in RUN_CASES:
+        for d in (1, 64):
+            inputs, mode = run_inputs(torch, args, case, d)
+            got, want = run_fresh(torch, inputs, d), run_fresh(torch, inputs,
+                                                              d)
+            wr_kernel.write_run_cuda(**got, **mode)
+            write_run_ref(**want, **mode)
+            torch.cuda.synchronize()
+            bad = [k for k in ("stop", "app", "mig")
+                   if not torch.equal(got[k], want[k])]
+            bad += [k for k, v in want["state"].items()
+                    if not torch.equal(got["state"][k], v)]
+            check(not bad, f"write_run {case} D={d}: kernel != plain in {bad}")
+            per_drive = (got["stop"][:, 0] - inputs["start"][:, 0]).cpu()
+            done = int(per_drive.sum())
+            check(done > 0, f"write_run {case} D={d}: no event landed")
+            times = {"kernel_ms": [], "kernel_ms_queued": [], "plain_ms": []}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            for i in range(max(3, args.iters // 50)):
+                for key in ("kernel_ms", "kernel_ms_queued"):
+                    run = run_fresh(torch, inputs, d)
+                    torch.cuda.synchronize()
+                    if key == "kernel_ms_queued":  # ~0.5 ms at ~2 GHz
+                        torch.cuda._sleep(1_000_000)
+                    start.record()
+                    wr_kernel.write_run_cuda(**run, **mode)
+                    end.record()
+                    end.synchronize()
+                    times[key].append(start.elapsed_time(end))
+                if i < 3 - (d > 1):  # the plain version: a host read per
+                    run = run_fresh(torch, inputs, d)  # element it reads
+                    torch.cuda.synchronize()
+                    start.record()
+                    write_run_ref(**run, **mode)
+                    end.record()
+                    end.synchronize()
+                    times["plain_ms"].append(start.elapsed_time(end))
+            nbytes = run_bytes(inputs, got["state"], got["stop"], mode)
+            ms = {k: float(np.median(v)) for k, v in times.items()}
+            line = {
+                "phase": "kernels", "name": "write_run", "case": case,
+                "drives": d, "td_mode": mode["td_mode"],
+                "op_stream": inputs["ops"] is not None,
+                "warm_events": args.run_warm, "segment": RUN_EVENTS,
+                "equal": True, "max_abs_err": 0,
+                "events_per_launch": done,
+                "longest_run": int(per_drive.max()),
+                **ms, "timed_launches": len(times["kernel_ms"]),
+                # the card's own time over the events it landed, and over
+                # the longest drive's chain of dependent events
+                "us_per_event": 1e3 * ms["kernel_ms_queued"] / done,
+                "us_per_chain_event":
+                    1e3 * ms["kernel_ms_queued"] / int(per_drive.max()),
+                "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": None, "card": card,
+            }
+            emit(line)
+            results[("write_run", case, d)] = line
+            del inputs, got, want
+            torch.cuda.empty_cache()
+    return results
+
+
 # -- phases -----------------------------------------------------------------
 
 def phase_kernels(torch, args, card):
@@ -606,6 +844,7 @@ def phase_kernels(torch, args, card):
         }
         emit(line)
         results[("compact_slots", d)] = line
+    results.update(run_kernels(torch, args, card))
     results.update(serving_kernels(torch, args, card))
     return results
 
@@ -672,11 +911,13 @@ def zero_counts() -> None:
     from repro_torch.kernels.gc_compact import kernel as gc_kernel
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
     from repro_torch.kernels.write_path import kernel as wp_kernel
+    from repro_torch.kernels.write_run import kernel as wr_kernel
 
-    wp_kernel.launches = wp_kernel.trim_launches = 0
+    wp_kernel.launches = wp_kernel.trim_launches = wr_kernel.launches = 0
     gc_kernel.launches = gc_kernel.kv_launches = 0
     paged_kernel.launches = flash_kernel.launches = 0
     simulator.host_syncs = 0
+    simulator.run_stops.update(dict.fromkeys(simulator.run_stops, 0))
 
 
 def read_launches() -> dict:
@@ -684,8 +925,10 @@ def read_launches() -> dict:
     from repro_torch.kernels.gc_compact import kernel as gc_kernel
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
     from repro_torch.kernels.write_path import kernel as wp_kernel
+    from repro_torch.kernels.write_run import kernel as wr_kernel
 
     return {
+        "write_run": wr_kernel.launches,
         "apply_write": wp_kernel.launches,
         "apply_trim": wp_kernel.trim_launches,
         "compact_slots": gc_kernel.launches,
@@ -696,7 +939,7 @@ def read_launches() -> dict:
 
 
 def phase_full_width(torch, args, card):
-    from repro_torch.core import managers, workloads
+    from repro_torch.core import managers, simulator, workloads
     from repro_torch.core.ssd import Geometry, assert_invariants
 
     geom = Geometry(**TABLE2)
@@ -710,9 +953,12 @@ def phase_full_width(torch, args, card):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    for name in ("apply_write", "compact_slots"):
+    stops = dict(simulator.run_stops)
+    for name in ("write_run", "compact_slots"):
         check(launches[name] > 0,
               f"full_width: the main path never launched {name}")
+    check(launches["apply_write"] == 0,
+          "full_width: a write went through the per-row apply_write")
     assert_invariants(card_run.state, "full_width (cuda)")
 
     t0 = time.perf_counter()
@@ -721,6 +967,12 @@ def phase_full_width(torch, args, card):
     cpu_seconds = time.perf_counter() - t0
     bad = same_run(torch, card_run, cpu_run)
     check(not bad, f"full_width: cuda != cpu in {bad}")
+    check(card_run.host_syncs == cpu_run.host_syncs,
+          f"full_width: {card_run.host_syncs} host syncs on the card, "
+          f"{cpu_run.host_syncs} on the CPU")
+    check(all(simulator.run_stops[k] == 2 * v for k, v in stops.items()),
+          f"full_width: run stops {stops} on the card, "
+          f"{simulator.run_stops} with the CPU's added")
     check(np.isfinite(card_run.wa_total) and card_run.wa_total >= 1.0,
           f"full_width: WA {card_run.wa_total}")
     line = {
@@ -737,7 +989,9 @@ def phase_full_width(torch, args, card):
         "cpu_writes_per_s": args.writes / cpu_seconds,
         "host_syncs": card_run.host_syncs,
         "host_syncs_per_write": card_run.host_syncs / args.writes,
-        "launches": launches, "card": card,
+        "runs": launches["write_run"],
+        "events_per_run": args.writes / launches["write_run"],
+        "run_stops": stops, "launches": launches, "card": card,
     }
     emit(line)
     return line
@@ -762,9 +1016,12 @@ def phase_full_width_churn(torch, args, card):
     seconds = time.perf_counter() - t0
     launches = read_launches()
     syncs = simulator.host_syncs
-    for name in ("apply_write", "apply_trim", "compact_slots"):
+    stops = dict(simulator.run_stops)
+    for name in ("write_run", "compact_slots"):
         check(launches[name] > 0,
               f"full_width_churn: the path never launched {name}")
+    check(launches["apply_write"] == launches["apply_trim"] == 0,
+          "full_width_churn: an event went through a per-row kernel")
     st = card_run.state
     assert_invariants(st, "full_width_churn (cuda)")
     check(int(st.n_trim) > 0, "full_width_churn: no TRIM landed")
@@ -776,6 +1033,12 @@ def phase_full_width_churn(torch, args, card):
     cpu_seconds = time.perf_counter() - t0
     bad = same_run(torch, card_run, cpu_run)
     check(not bad, f"full_width_churn: cuda != cpu in {bad}")
+    check(cpu_run.host_syncs == syncs,
+          f"full_width_churn: {syncs} host syncs on the card, "
+          f"{cpu_run.host_syncs} on the CPU")
+    check(all(simulator.run_stops[k] == 2 * v for k, v in stops.items()),
+          f"full_width_churn: run stops {stops} on the card, "
+          f"{simulator.run_stops} with the CPU's added")
     check(np.isfinite(card_run.wa_total) and card_run.wa_total >= 1.0,
           f"full_width_churn: WA {card_run.wa_total}")
     writes = int(st.n_app)
@@ -795,7 +1058,9 @@ def phase_full_width_churn(torch, args, card):
         "cpu_seconds": cpu_seconds, "cpu_events_per_s": n / cpu_seconds,
         "host_syncs": syncs, "host_syncs_per_event": syncs / n,
         "host_syncs_per_write": syncs / writes,
-        "launches": launches, "card": card,
+        "runs": launches["write_run"],
+        "events_per_run": n / launches["write_run"],
+        "run_stops": stops, "launches": launches, "card": card,
     }
     emit(line)
     return line
@@ -1041,11 +1306,14 @@ def kernel_stats(torch, prof, wall):
 
 def phase_profile(torch, args, card):
     """Where the card's time goes on the simulator's two Table-2 paths
-    (wolf on two_modal, wolf_dynamic on the tpcc_churn op stream) and on
+    (wolf on two_modal, wolf_dynamic on the tpcc_churn op stream), in two
+    windows each: the first --profile-writes events of a fresh drive (GC
+    at its heaviest), and ten times as many after --run-warm events (the
+    steady state the default runs spend most of their events in); and on
     the serving engine's decode steps."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import managers, workloads
+    from repro_torch.core import managers, simulator, workloads
     from repro_torch.core.ssd import Geometry
     from repro_torch.models.registry import get_config
 
@@ -1057,23 +1325,37 @@ def phase_profile(torch, args, card):
         ("full_width_churn", managers.wolf_dynamic(),
          workloads.tpcc_churn(geom.lba_pages, n)),
     ]
-    for path, mcfg, phase in paths:
+
+    def window(path, label, events, fn):
         torch.cuda.synchronize()
         # device activity only: the host-side op records are not read, and
         # collecting them costs minutes after the window
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res = managers.simulate(geom, mcfg, [phase], seed=args.seed + 1,
-                                    device="cuda")
+            syncs = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         stats = kernel_stats(torch, prof, wall)
         emit({
-            "phase": "profile", "path": path, "manager": mcfg.name,
-            "events": n, **stats,
-            "kernels_per_event": stats["launches"] / n,
-            "host_syncs_per_event": res.host_syncs / n, "card": card,
+            "phase": "profile", "path": path, "window": label,
+            "events": events, **stats,
+            "events_per_s": events / wall,
+            "kernels_per_event": stats["launches"] / events,
+            "host_syncs_per_event": syncs / events, "card": card,
         })
+
+    for path, mcfg, phase in paths:
+        window(path, "fresh drive", n, lambda: managers.simulate(
+            geom, mcfg, [phase], seed=args.seed + 1,
+            device="cuda").host_syncs)
+    for path in RUN_CASES:
+        ctx, st, run_kw, events = warm_drive(args, path)
+        ops, lbas = events(10 * n, [args.seed, 1 << 20])
+        window(path, f"after {args.run_warm} events", 10 * n,
+               lambda: simulator.run(
+                   ctx, st, lbas, ops=ops if ctx.with_trim else None,
+                   device="cuda", **run_kw)[1]["host_syncs"])
+        del st
 
     # decode steps of the serving engine at batch 32, after the prefills
     steps = 8
@@ -1116,6 +1398,7 @@ def main() -> None:
     ap.add_argument("--small-writes", type=int, default=6000)
     ap.add_argument("--iters", type=int, default=1000)
     ap.add_argument("--profile-writes", type=int, default=1000)
+    ap.add_argument("--run-warm", type=int, default=20_000)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1134,7 +1417,7 @@ def main() -> None:
         "device": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "kernel_build_s": build_s,
-        "attention_kernels": build_report(_build),
+        "ptxas_sass": build_report(_build),
     })
     seconds = {}
 
@@ -1157,6 +1440,9 @@ def main() -> None:
     timed("profile", phase_profile, card)
 
     replaces = {
+        "write_run": "src/repro/kernels/write_path/kernel.py:66 (apply_write)"
+                     " and src/repro/kernels/write_path/kernel.py:117 "
+                     "(apply_trim), on the simulator's paths",
         "apply_write": "src/repro/kernels/write_path/kernel.py:66",
         "apply_trim": "src/repro/kernels/write_path/kernel.py:117",
         "compact_slots": "src/repro/kernels/gc_compact/kernel.py:67",
@@ -1164,31 +1450,42 @@ def main() -> None:
         "paged_attention": "src/repro/kernels/paged_attention/kernel.py:148",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:161",
     }
-    # the case whose times each summary row reports: the simulator's
-    # kernels at D = 1 (its main path), the serving path's in the type its
-    # path runs them in (bf16 serving; the dense check's flash in fp32)
-    case = {"apply_write": 1, "apply_trim": 1, "compact_slots": 1,
-            "gc_compact": "bfloat16", "paged_attention": "bfloat16",
-            "flash_attention": "float32"}
+    # every case each summary row holds, the one whose times it reports
+    # first: the simulator's kernels at D = 1 (its main path; write_run in
+    # full_width's state), the serving path's in the type its path runs
+    # them in (bf16 serving; the dense check's flash in fp32)
+    cases = {
+        "write_run": [(c, d) for c in RUN_CASES for d in (1, 64)],
+        **{n: [1, 64] for n in ("apply_write", "apply_trim", "compact_slots")},
+        "gc_compact": ["bfloat16", "float32"],
+        "paged_attention": ["bfloat16", "float32"],
+        "flash_attention": ["float32", "bfloat16"],
+    }
     summary = []
     for name in replaces:
-        sim = isinstance(case[name], int)
-        sizes = (1, 64) if sim else ("float32", "bfloat16")
-        k1 = kernels[(name, case[name])]
+        first = cases[name][0]
+        k1 = kernels[(name, *first) if name == "write_run" else (name, first)]
         by_path = {p: line["launches"][name] for p, line in paths.items()}
         row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
-            "timed_case": f"drives={case[name]}" if sim else case[name],
+            "timed_case": (f"{first[0]} state, drives={first[1]}"
+                           if name == "write_run" else
+                           f"drives={first}" if isinstance(first, int)
+                           else first),
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(kernels[(name, d)]["max_abs_err"]
-                               for d in sizes),
+            "max_abs_err": max(kernels[
+                (name, *c) if name == "write_run" else (name, c)][
+                "max_abs_err"] for c in cases[name]),
             "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
             "library_ms": k1["library_ms"],
         }
+        if name == "write_run":
+            row.update({k: k1[k] for k in (
+                "kernel_ms_queued", "events_per_launch", "us_per_event")})
         if name in ("paged_attention", "flash_attention"):
             row["ms_queued"] = k1["kernel_ms_queued"]
         if name == "paged_attention":

@@ -7,7 +7,7 @@ stream: a WRITE of a page, or (op streams only) a TRIM of one.
 A WRITE:
 
   1. invalidate the page's old physical slot (counters first; the valid
-     bit is cleared by the fused write or, on the heavy path, before GC),
+     bit is cleared with the commit or, on the heavy path, before GC),
   2. pick the target group (§5.6): the page's own under the static
      detector; one group hotter on a promotion by the FDP rate bands or the
      bloom filter pair. A page re-mapped after a TRIM lands in its layout
@@ -21,13 +21,15 @@ A WRITE:
      most block-surplus group.
 
 A write whose group has room in its open block, with the pool above
-reserve, no movement surplus and no interval boundary, takes the fast path:
-one fused ``kernels/write_path.apply_write`` plus counter updates. The rest
-(:func:`_step_tail`) runs only when one of those O(1) predicates trips. A GC
-drain moves the victim's slot metadata with ``kernels/gc_compact.
-compact_slots``. A TRIM (:func:`_trim_page`) is one fused
-``kernels/write_path.apply_trim`` plus counter updates: it frees space and
-completes no write, so it has no heavy path.
+reserve, no movement surplus and no interval boundary, takes the fast path.
+:func:`scan_writes` lands runs of such writes, and every TRIM, on the
+device in one ``kernels/write_run`` launch a run: the kernel decides each
+write there and stops before the first heavy one (or one whose bloom insert
+would rotate the filter pair), which the host runs through
+:func:`_split_write` and :func:`_step_tail`; then the next run starts after
+it. A TRIM frees space and completes no write, so it never stops a run. A
+GC drain moves the victim's slot metadata with ``kernels/gc_compact.
+compact_slots``.
 
 State lives on one device and is updated in place. Every decision that the
 JAX package expresses as ``lax.cond`` or ``lax.while_loop`` is Python
@@ -35,7 +37,8 @@ control flow on one device→host read, counted in :data:`host_syncs`;
 everything between decisions is enqueued on the device without a read. The
 WRITE/TRIM choice and the §5.1 interval boundary are host decisions with
 nothing to read: op codes come from numpy, and the write clock ``n_app``
-advances by one per WRITE. Indices that stay on the device are 0-d integer
+advances by one per WRITE. A run costs one read (where it stopped), and
+none when it holds no WRITE. Indices that stay on the device are 0-d integer
 tensors, read with :func:`_get` and written with :func:`_set` /
 :func:`_add`, so no read is a view that a later write would change and no
 index silently wraps.
@@ -66,7 +69,12 @@ from repro_torch.core.ssd import (
 )
 from repro_torch.core.workloads import OP_TRIM
 from repro_torch.kernels.gc_compact.ops import compact_slots_
-from repro_torch.kernels.write_path.ops import apply_trim_, apply_write_
+from repro_torch.kernels.write_run.kernel import (
+    COUNTERS,
+    STATE_FIELDS,
+    STOP_WHY,
+)
+from repro_torch.kernels.write_run.ops import write_run_
 
 INT_MAX = 2**31 - 1
 # the emergency valve's fixed weight point: pure greedy reclaim
@@ -77,6 +85,9 @@ CLOSED_FORM_MODES = ("wolf", "optimal", "fdp_assumed")
 
 # device→host reads made for decisions since the count was last set to 0
 host_syncs = 0
+# the writes that stopped a write_run run, by why (STOP_WHY), since the
+# count was last cleared
+run_stops = dict.fromkeys(STOP_WHY[1:], 0)
 
 
 def check_supported(mcfg: ManagerConfig) -> None:
@@ -271,28 +282,6 @@ def _clear_valid(ctx: SimContext, st: SimState, pm) -> None:
     flat = pm.clamp(min=0).long()
     valid = st.valid.view(-1)
     _set(valid, flat, ~has & _get(valid, flat))
-
-
-def _trim_page(ctx: SimContext, st: SimState, lba) -> None:
-    """The op stream's TRIM: unmap ``lba`` and kill its physical slot.
-
-    The counter half is :func:`_invalidate_counts`, the mapping half one
-    fused ``apply_trim``; the killed slot is tallied on its block
-    (``trim_dead``, the victim score's τ term, cleared when the block
-    erases). A re-trim of an unmapped page changes nothing but ``n_trim``.
-    No host read: a TRIM frees space, so it never needs GC, the valve or
-    movement, and it closes no §5.1 interval.
-    """
-    _, old_pm = _invalidate_counts(ctx, st, lba)
-    row = torch.stack([
-        lba.to(torch.int32), old_pm,
-        torch.ones((), dtype=torch.int32, device=st.device),
-    ])[None]
-    apply_trim_(row, st.page_map[None], st.valid[None])
-    has = old_pm >= 0
-    blk = old_pm.clamp(min=0).long() // ctx.geom.pages_per_block
-    _add(st.trim_dead, blk, has.to(torch.int32))
-    st.n_trim.add_(1)
 
 
 # ---------------------------------------------------------------------------
@@ -934,10 +923,12 @@ def _resolve_group(st: SimState, old_g, had_mapping, lba, page_group0):
 
 
 def _split_write(ctx: SimContext, st: SimState, lba, w: int, policy) -> None:
-    """One application write: the fast path when every heavy predicate is
-    false (exact, not conservative), else :func:`_step_tail`. ``w`` is the
-    write clock (``n_app`` before this write)."""
-    b = ctx.geom.pages_per_block
+    """A write that stopped a run of ``write_run_``: the invalidate counts,
+    the target group, then :func:`_step_tail` (GC, the valve, the append,
+    the interval, movement). ``w`` is the write clock (``n_app`` before
+    this write). A write that stopped the run for a bloom rotation alone
+    passes every heavy predicate, and the tail lands it as the run would
+    have, with the rotation."""
     g, old_pm = _invalidate_counts(ctx, st, lba)
     if ctx.with_trim:
         g = _resolve_group(st, g, old_pm >= 0, lba, policy["page_group0"])
@@ -945,34 +936,8 @@ def _split_write(ctx: SimContext, st: SimState, lba, w: int, policy) -> None:
         old_g = g
         g = _target_group_app(ctx, st, lba, old_g, policy)
         g = torch.where(_get(st.grp_active, g), g, old_g)
-
-    blk = _get(st.active_blk, g)
-    blk_c = blk.clamp(min=0).long()
-    slot = _get(st.fill, blk_c)
-    # heavy-path predicates: no room in the active block, the valve could
-    # fire, movement could fire (a fast write changes no surplus), or the
-    # interval closes
-    may = (blk < 0) | (slot >= b) | (st.free_blocks < 2)
-    if ctx.mcfg.movement_ops:
-        may = may | (st.grp_surplus.max() >= 1)
-    heavy = ((w + 1) % ctx.h == 0) or _when(may)
-    if heavy:
-        _clear_valid(ctx, st, old_pm)
-        _step_tail(ctx, st, lba, w, g, policy)
-        return
-    # the op row is built on the device: (lba, old_pm, new_pm, ok)
-    row = torch.stack([
-        lba.to(torch.int32), old_pm, (blk_c * b + slot).to(torch.int32),
-        torch.ones((), dtype=torch.int32, device=st.device),
-    ])[None]
-    apply_write_(row, st.page_map[None], st.slot_lba[None], st.valid[None])
-    _add(st.fill, blk_c, 1)
-    _add(st.live, blk_c, 1)
-    _add(st.grp_size, g, 1)
-    _add(st.grp_live, g, 1)
-    st.mapped_pages.add_(1)
-    st.n_app.add_(1)
-    _add(st.grp_writes, g, 1)
+    _clear_valid(ctx, st, old_pm)
+    _step_tail(ctx, st, lba, w, g, policy)
 
 
 def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
@@ -982,26 +947,62 @@ def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
     emitting the cumulative (n_app, n_mig) counters after every
     ``ctx.trace_every``-th event. ``w0`` is the write clock (``n_app``) at
     the first event. Returns device tensors (app, mig) of length
-    len(lbas) // trace_every."""
+    len(lbas) // trace_every.
+
+    One ``write_run_`` launch lands events from j until the first write
+    that needs the heavy path (or a bloom rotation); one read says where
+    and why it stopped (tallied in :data:`run_stops`). That write goes
+    through :func:`_split_write`, and the next run starts after it. The
+    write clock advances by the WRITEs the run completed, counted from the
+    op codes on the host.
+    """
     e = ctx.trace_every
     n = int(lbas.shape[0])
     if n % e:
         raise ValueError(f"trace_every={e} must divide the segment length {n}")
-    is_trim = ([False] * n if ops is None
-               else (np.asarray(ops) == OP_TRIM).tolist())
-    app = torch.empty(n // e, dtype=torch.int32, device=st.device)
+    dev = st.device
+    if ops is None:
+        is_write, ops_dev = np.ones(n, bool), None
+    else:
+        is_write = np.asarray(ops) != OP_TRIM
+        ops_dev = torch.as_tensor(np.asarray(ops, np.uint8), device=dev)[None]
+    # writes_before[j]: the WRITEs among events 0..j-1
+    writes_before = np.concatenate([[0], np.cumsum(is_write)]).tolist()
+    app = torch.empty((1, n // e), dtype=torch.int32, device=dev)
     mig = torch.empty_like(app)
-    w = w0
-    for j in range(n):
-        if is_trim[j]:
-            _trim_page(ctx, st, lbas[j])
-        else:
-            _split_write(ctx, st, lbas[j], w, policy)
-            w += 1
-        if (j + 1) % e == 0:
-            app[(j + 1) // e - 1] = st.n_app
-            mig[(j + 1) // e - 1] = st.n_mig
-    return app, mig
+    # one drive: a drive axis of 1 (a counter may come from the JAX package
+    # as [1], already a drive axis)
+    state = {k: getattr(st, k).view(1) if k in COUNTERS
+             else getattr(st, k)[None] for k in STATE_FIELDS}
+    run_policy = {k: policy[k][None] for k in (
+        "page_rate", "fdp_rate", "page_group0") if k in policy}
+    mode = dict(h=ctx.h, trace_every=e, td_mode=ctx.mcfg.td_mode,
+                movement_ops=ctx.mcfg.movement_ops,
+                bloom_rotate_min_writes=ctx.mcfg.bloom_rotate_min_writes)
+    start = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    start[:, 1] = w0
+    stop = torch.empty((1, 3), dtype=torch.int64, device=dev)
+    j, w = 0, w0
+    while j < n:
+        write_run_(lbas[None], ops_dev, start, stop, state, run_policy, app,
+                   mig, **mode)
+        if writes_before[n] == writes_before[j]:
+            break  # TRIMs alone: the run went to the end
+        s, w_s, why = _read(stop)[0].tolist()
+        w += writes_before[s] - writes_before[j]
+        if w_s != w:
+            raise RuntimeError(f"write clock: device {w_s}, host {w}")
+        if s == n:
+            break
+        run_stops[STOP_WHY[why]] += 1
+        _split_write(ctx, st, lbas[s], w, policy)
+        w += 1
+        if (s + 1) % e == 0:
+            app[0, (s + 1) // e - 1] = st.n_app
+            mig[0, (s + 1) // e - 1] = st.n_mig
+        j = s + 1
+        torch.add(stop[:, :2], 1, out=start)  # (s + 1, w + 1)
+    return app[0], mig[0]
 
 
 def run(ctx: SimContext, st: SimState, lbas, *, ops=None, page_group0=None,
@@ -1023,13 +1024,17 @@ def run(ctx: SimContext, st: SimState, lbas, *, ops=None, page_group0=None,
     if (ops is not None) != ctx.with_trim:
         raise ValueError("pass ops= iff the context is an op stream "
                          "(ctx.with_trim)")
+    lbas = np.asarray(lbas)
+    if lbas.size and not 0 <= lbas.min() <= lbas.max() < ctx.geom.lba_pages:
+        raise ValueError(f"lbas outside [0, {ctx.geom.lba_pages})")
+    if ops is not None and np.shape(ops) != lbas.shape:
+        raise ValueError(f"ops {np.shape(ops)} and lbas {lbas.shape} differ")
     st = st.to(device)
     policy = policy_from_config(
         ctx, st.device, assumed_p=assumed_p, fdp_rate=fdp_rate,
         page_rate=page_rate, page_group0=page_group0,
     )
-    lbas = torch.as_tensor(np.asarray(lbas), dtype=torch.int64,
-                           device=st.device)
+    lbas = torch.as_tensor(lbas, dtype=torch.int64, device=st.device)
     syncs0 = host_syncs
     app, mig = scan_writes(ctx, st, lbas, int(st.n_app), policy, ops)
     trace = {

@@ -38,6 +38,8 @@ SIGNATURES = {
         "apply_write_launch", (_P, _P, _P, _P, _I, _L, _L, _P)),
     "apply_trim": (
         "apply_trim_launch", (_P, _P, _P, _I, _L, _L, _P)),
+    "write_run": (
+        "write_run_launch", (_P, _I, _P, _I, _I, _I, _I, _I, _P)),
     "compact_slots": (
         "compact_slots_launch", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "gc_compact": (

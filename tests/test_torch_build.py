@@ -91,6 +91,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(d):
      "paged_attention_kernel<bf16, 2>"),
     ("_ZN12_GLOBAL__N_117flash_fp32_kernelILi64EEEvPKfS2_S2_Pf",
      "flash_fp32_kernel<64>"),
+    ("_ZN45_GLOBAL__N__b905c18f_12_write_run_cu_f38e313b16write_run_kernelILi"
+     "2ELb1ELb0EEEvNS_4PtrsENS_4DimsE", "write_run_kernel<2, 1, 0>"),
 ])
 def test_short_name_reads_template_arguments(mangled, short):
     assert chip_smoke.short_name(mangled) == short

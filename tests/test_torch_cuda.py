@@ -16,11 +16,14 @@ bf16 each output row also within 2e-2 of its own largest value, since
 attention outputs can lie far below the absolute bound.
 """
 
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import managers, workloads
+from repro_torch.core import managers, simulator, workloads
 from repro_torch.core.ssd import Geometry, assert_invariants
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -30,6 +33,8 @@ from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.kernels.write_path import kernel as wp_kernel
 from repro_torch.kernels.write_path import ops as wp_ops
+from repro_torch.kernels.write_run import kernel as wr_kernel
+from repro_torch.kernels.write_run import ref as wr_ref
 from repro_torch.models.registry import get_config, smoke_config
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -133,17 +138,21 @@ def test_trim_kernel_matches_plain_version(cuda, d):
 @pytest.mark.cuda
 def test_card_op_stream_run_matches_cpu_run(cuda):
     """wolf_dynamic on tpcc_churn (bloom detector, demoting drains, §5.2
-    groups, TRIMs) on the card equals the CPU run, bit for bit."""
+    groups, TRIMs) on the card equals the CPU run, bit for bit. Every
+    TRIM and fast write lands through the run kernel, none through the
+    per-row kernels."""
     geom = Geometry(4, 32, 8)
     phases = [workloads.tpcc_churn(geom.lba_pages, 3000)]
-    n = wp_kernel.trim_launches
+    n = (wr_kernel.launches, wp_kernel.launches, wp_kernel.trim_launches)
     card = managers.simulate(geom, managers.wolf_dynamic(), phases, seed=3,
                              device="cuda")
-    assert wp_kernel.trim_launches > n
+    assert wr_kernel.launches > n[0]
+    assert (wp_kernel.launches, wp_kernel.trim_launches) == n[1:]
     host = managers.simulate(geom, managers.wolf_dynamic(), phases, seed=3,
                              device="cpu")
     np.testing.assert_array_equal(card.app, host.app)
     np.testing.assert_array_equal(card.mig, host.mig)
+    assert card.host_syncs == host.host_syncs
     for name, v in card.state.items():
         assert torch.equal(v.cpu(), host.state[name]), name
     assert_invariants(card.state)
@@ -153,17 +162,101 @@ def test_card_op_stream_run_matches_cpu_run(cuda):
 def test_card_run_matches_cpu_run(cuda):
     geom = Geometry(4, 32, 8)
     phases = [workloads.two_modal(geom.lba_pages, 3000)]
-    n = (wp_kernel.launches, gc_kernel.launches)
+    n = (wr_kernel.launches, gc_kernel.launches, wp_kernel.launches)
     card = managers.simulate(geom, managers.wolf(), phases, seed=3,
                              device="cuda")
-    assert wp_kernel.launches > n[0] and gc_kernel.launches > n[1]
+    assert wr_kernel.launches > n[0] and gc_kernel.launches > n[1]
+    assert wp_kernel.launches == n[2]
     host = managers.simulate(geom, managers.wolf(), phases, seed=3,
                              device="cpu")
     np.testing.assert_array_equal(card.app, host.app)
     np.testing.assert_array_equal(card.mig, host.mig)
+    assert card.host_syncs == host.host_syncs
     for name, v in card.state.items():
         assert torch.equal(v.cpu(), host.state[name]), name
     assert_invariants(card.state)
+
+
+TABLE2 = Geometry(8, 1024, 128, 0.7)
+RUN_PRESETS = {"static": "wolf", "fdp": "fdp", "bloom": "wolf_dynamic"}
+
+
+@functools.lru_cache(maxsize=None)
+def _table2_drive(td_mode, with_trim, warm=3000):
+    """A Table-2 drive on the card after ``warm`` events of tpcc_churn
+    (its TRIMs dropped without an op stream), under the preset of
+    ``td_mode``: (ctx, state, policy, phase)."""
+    mcfg = getattr(managers, RUN_PRESETS[td_mode])()
+    phase = workloads.tpcc_churn(TABLE2.lba_pages, warm)
+    if not with_trim:
+        phase = dataclasses.replace(phase, trim_probs=())
+    st, n_groups, assumed_p, fdp_rate, rates, pg0 = managers.build_drive(
+        TABLE2, mcfg, [phase], device="cuda")
+    ctx = simulator.SimContext(TABLE2, mcfg, n_groups, with_trim=with_trim)
+    ops, lbas = phase.sample_ops(np.random.default_rng(0))
+    kw = dict(page_rate=rates[0], assumed_p=assumed_p, fdp_rate=fdp_rate)
+    if with_trim:
+        kw.update(ops=ops, page_group0=pg0)
+    st, _ = simulator.run(ctx, st, lbas, device="cuda", **kw)
+    policy = simulator.policy_from_config(
+        ctx, "cuda", assumed_p=assumed_p, fdp_rate=fdp_rate,
+        page_rate=rates[0], page_group0=pg0 if with_trim else None)
+    return ctx, st, policy, phase
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 64])
+@pytest.mark.parametrize("with_trim", [True, False], ids=["trim", "writes"])
+@pytest.mark.parametrize("td_mode", ["static", "fdp", "bloom"])
+def test_write_run_kernel_matches_plain_version(cuda, td_mode, with_trim, d):
+    """From a Table-2 state reached on the card, d drives (each its own
+    next 512 events) run through the kernel and, on copies of the same
+    inputs on the CPU, through write_run_ref: stop, trace and every state
+    field exact (grp_p, which a run only reads, too)."""
+    ctx, st, policy, phase = _table2_drive(td_mode, with_trim)
+    n = 512
+    rows = [dataclasses.replace(phase, n_writes=n).sample_ops(
+        np.random.default_rng(1 + i)) for i in range(d)]
+    ops = torch.from_numpy(np.stack([o for o, _ in rows]).astype(np.uint8))
+    args = dict(
+        lbas=torch.from_numpy(np.stack([lb for _, lb in rows]).astype(
+            np.int64)),
+        ops=ops if with_trim else None,
+        start=torch.tensor([[0, int(st.n_app)]] * d),
+        stop=torch.full((d, 3), -1),
+        state={k: (v.view(1) if k in wr_kernel.COUNTERS else v[None])
+               for k, v in ((k, getattr(st, k).cpu())
+                            for k in wr_kernel.STATE_FIELDS)},
+        policy={k: policy[k][None].cpu() for k in (
+            "page_rate", "fdp_rate", "page_group0") if k in policy},
+        app=torch.full((d, n), -1, dtype=torch.int32),
+        mig=torch.full((d, n), -1, dtype=torch.int32),
+    )
+    for group in ("state", "policy"):
+        args[group] = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
+                       for k, v in args[group].items()}
+    mode = dict(h=ctx.h, trace_every=1, td_mode=td_mode,
+                movement_ops=ctx.mcfg.movement_ops,
+                bloom_rotate_min_writes=ctx.mcfg.bloom_rotate_min_writes)
+
+    def on(device):
+        return {k: None if v is None else (
+            {kk: vv.to(device, copy=True) for kk, vv in v.items()}
+            if isinstance(v, dict) else v.to(device, copy=True))
+            for k, v in args.items()}
+
+    got, want = on(cuda), on("cpu")
+    n_launch = wr_kernel.launches
+    wr_kernel.write_run_cuda(**got, **mode)
+    torch.cuda.synchronize()
+    assert wr_kernel.launches == n_launch + 1
+    wr_ref.write_run_ref(**want, **mode)
+    assert (want["stop"][:, 0] > 0).any()
+    for k in ("stop", "app", "mig"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    for group in ("state", "policy"):
+        for k, v in want[group].items():
+            assert torch.equal(got[group][k].cpu(), v), k
 
 
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
