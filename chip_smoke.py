@@ -8,9 +8,10 @@ Phases, one JSON line each; any failed check exits non-zero:
 
   env         the card (nvidia-smi name and power limit), torch and CUDA
               versions, the wall time of building the kernels, and for the
-              two attention kernels and write_run ptxas's registers, spills
-              and static shared memory and the tensor-core instructions
-              (HMMA) in their SASS: the bf16 flash kernel must have some;
+              two attention kernels, write_run, gc_one and gc_compact
+              ptxas's registers, spills and static shared memory and the
+              tensor-core instructions (HMMA) in their SASS: the bf16 flash
+              kernel must have some;
   kernels     each hand-written kernel against its plain PyTorch version on
               random valid inputs: the simulator's three at Table-2 widths,
               for one drive and for 64, equal (integers, exact); the serving
@@ -27,7 +28,14 @@ Phases, one JSON line each; any failed check exits non-zero:
               paths' configurations after --run-warm events), one drive and
               64, each launch from a fresh copy of the state and timed
               alone: ms, events per launch, us per event, exact against
-              write_run_ref;
+              write_run_ref; the GC kernel gc_one from full_width's state
+              after --run-warm writes, one drive and 64, in each mode (the
+              heavy write's own GC with its open block full and over budget,
+              the emergency valve, a movement operation), each launch from a
+              fresh copy of the state and timed alone, queued and unqueued,
+              exact against gc_one_ref; gc_compact on move lists whose
+              sources overlap the destinations (two launches) and on
+              disjoint ones (one);
   equiv_small six preset/workload pairs at Geometry(4, 32, 8) on the card
               and on the CPU (static wolf and single_group, fdp on the §6.2
               swap, wolf_dynamic on tpcc_like, and TRIM op streams):
@@ -45,7 +53,9 @@ Phases, one JSON line each; any failed check exits non-zero:
               §5.6 demotion, §5.2 groups) on the tpcc_churn op stream, card
               then CPU, counts set to 0 just before the card run: traces and
               integer state must agree, TRIMs must land and nothing drop,
-              and every kernel must have been launched;
+              every kernel must have been launched, compact_slots once a
+              (demoting) drain, and at the default depth and seed the host
+              syncs must be 5,367;
   serve_full_width  the Wolf-KV serving engine on internlm2-1.8b at its
               full published width in bf16 (random weights from --seed): 48
               requests of 256 prompt tokens and 256 new ones, policies
@@ -118,19 +128,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int, queued: bool = False) -> float:
+def time_ms(torch, fn, iters: int, queued: bool = False,
+            sleep_cycles: int = 200_000) -> float:
     """Mean ms per call of ``fn`` over ``iters`` warm calls (CUDA events).
     Unqueued, a call that is shorter on the card than its host cost
     (argument checks, the ctypes call) reads as that cost. ``queued``: the
-    card first sleeps while the host enqueues every call, so the calls run
-    back to back and the host's cost drops out: device time."""
+    card first sleeps ``sleep_cycles`` a call (200,000: ~0.1 ms at ~2 GHz)
+    while the host enqueues every call, so the calls run back to back and
+    the host's cost drops out: device time, as long as the sleep outlasts
+    the host's cost."""
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    if queued:  # ~0.1 ms of sleep a call at ~2 GHz
-        torch.cuda._sleep(iters * 200_000)
+    if queued:
+        torch.cuda._sleep(iters * sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -139,14 +152,41 @@ def time_ms(torch, fn, iters: int, queued: bool = False) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_both(torch, key: str, fn, iters: int) -> dict:
+def time_both(torch, key: str, fn, iters: int,
+              sleep_cycles: int = 200_000) -> dict:
     """``time_ms`` both ways: {key: unqueued, key + "_queued": queued}."""
     return {key: time_ms(torch, fn, iters),
-            key + "_queued": time_ms(torch, fn, iters, queued=True)}
+            key + "_queued": time_ms(torch, fn, iters, queued=True,
+                                     sleep_cycles=sleep_cycles)}
+
+
+def device_ms(torch, fn, iters: int, names: dict) -> dict:
+    """ms per call of ``fn`` on the card by torch.profiler, over ``iters``
+    warm calls: {label: the self device time of the kernels and copies
+    whose name holds names[label]}, "not measured" where the trace has
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == cuda]
+    out = {}
+    for label, name in names.items():
+        us = sum(_device_us(e) for e in events if name in e.key)
+        out[label] = us / 1e3 / iters if us else "not measured"
+    return out
 
 
 NAMED_KERNELS = ("flash_bf16_kernel", "flash_fp32_kernel",
-                 "paged_attention_kernel", "write_run_kernel")
+                 "paged_attention_kernel", "write_run_kernel", "gc_one_kernel",
+                 "gc_compact_kernel")
 
 
 def short_name(mangled: str) -> str:
@@ -197,13 +237,14 @@ def count_opcode(sass: str, opcode: str) -> dict:
 
 def build_report(build) -> dict:
     """ptxas's figures (from the build's nvcc log) and the SASS's HMMA
-    count for the two attention kernels and the run kernel, by kernel
-    instantiation; fails unless every bf16 flash instantiation runs on the
-    tensor cores."""
+    count for the two attention kernels, the run kernel, the GC kernel and
+    the KV compaction, by kernel instantiation; fails unless every bf16
+    flash instantiation runs on the tensor cores."""
     cuobjdump = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     report = {}
-    for src in ("flash_attention", "paged_attention", "write_run"):
+    for src in ("flash_attention", "paged_attention", "write_run", "gc_one",
+                "gc_compact"):
         lib = build.library(src)
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                               capture_output=True, text=True, check=True,
@@ -301,16 +342,18 @@ def serve_kv(cfg) -> dict:
                 d_head=cfg.d_head)
 
 
-def gc_inputs(torch, rng, dtype, kv, moves=512):
-    """K and V pools [L, N, P, Hkv, D] and a host move list [M, 4] whose
-    source and destination slot sets overlap; a tenth of the rows are
-    no-ops."""
+def gc_inputs(torch, rng, dtype, kv, disjoint, moves=512):
+    """K and V pools [L, N, P, Hkv, D] and a host move list [M, 4] of
+    distinct destinations whose sources are drawn among all slots (so
+    some are other rows' destinations: hazard rows) or, ``disjoint``,
+    among the slots no row lands on; a tenth of the rows are no-ops."""
     shape = (kv["layers"], kv["blocks"], kv["page"], kv["kv_heads"],
              kv["d_head"])
     pools = [torch.randn(shape, device="cuda").to(dtype) for _ in range(2)]
-    slots = kv["blocks"] * kv["page"]
-    src = rng.choice(slots, moves, replace=False)
-    dst = rng.choice(slots, moves, replace=False)
+    slots = rng.permutation(kv["blocks"] * kv["page"])
+    dst = slots[:moves]
+    src = rng.choice(slots[moves:] if disjoint else slots, moves,
+                     replace=False)
     mv = np.stack([src // kv["page"], src % kv["page"], dst // kv["page"],
                    dst % kv["page"]], 1).astype(np.int32)
     mv[rng.random(moves) < 0.1, 0] = -1
@@ -363,6 +406,7 @@ def serving_kernels(torch, args, card):
         flash_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.gc_compact import kernel as gc_kernel
     from repro_torch.kernels.gc_compact.kernel import gc_compact_cuda
     from repro_torch.kernels.gc_compact.ref import gc_compact_ref
     from repro_torch.kernels.paged_attention.kernel import (
@@ -383,35 +427,58 @@ def serving_kernels(torch, args, card):
         tname = str(dtype).split(".")[1]
         esize = torch.finfo(dtype).bits // 8
 
-        pools, moves = gc_inputs(torch, rng, dtype, kv)
-        outs = []
-        for fn in (gc_compact_cuda, gc_compact_ref):
-            got = [t.clone() for t in pools]
-            fn(*got, moves)
-            torch.cuda.synchronize()
-            outs.append(got)
-        err = max((x.float() - y.float()).abs().max().item()
-                  for x, y in zip(*outs))
-        check(err == 0, f"gc_compact {tname}: kernel != plain (max {err})")
-        del outs
-        live = int((moves[:, 0] >= 0).sum())
-        row = kv["kv_heads"] * kv["d_head"] * esize
-        # each live move reads and writes one slot of K and V per layer
-        nbytes = 2 * 2 * kv["layers"] * live * row + 16 * len(moves)
-        line = {
-            "phase": "kernels", "name": "gc_compact", "dtype": tname,
-            **kv, "moves": len(moves), "live_moves": live,
-            "equal": True, "max_abs_err": err,
-            "kernel_ms": time_ms(torch, lambda: gc_compact_cuda(*pools, moves),
-                                 iters),
-            "plain_ms": time_ms(torch, lambda: gc_compact_ref(*pools, moves),
-                                iters),
-            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None, "card": card,
-        }
-        emit(line)
-        results[("gc_compact", tname)] = line
-        del pools
+        for case in ("overlapping", "disjoint"):
+            pools, moves = gc_inputs(torch, rng, dtype, kv,
+                                     disjoint=case == "disjoint")
+            outs = []
+            for fn in (gc_compact_cuda, gc_compact_ref):
+                got = [t.clone() for t in pools]
+                n0 = gc_kernel.kv_device_launches
+                fn(*got, moves)
+                torch.cuda.synchronize()
+                outs.append(got)
+                if fn is gc_compact_cuda:
+                    device_launches = gc_kernel.kv_device_launches - n0
+            err = max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(*outs))
+            check(err == 0, f"gc_compact {tname} {case}: kernel != plain "
+                  f"(max {err})")
+            del outs
+            _, n_hazard = gc_kernel.plan_moves(moves, kv["blocks"],
+                                               kv["page"])
+            check(device_launches == 1 + (n_hazard > 0)
+                  and (n_hazard == 0) == (case == "disjoint"),
+                  f"gc_compact {tname} {case}: {device_launches} launches "
+                  f"for {n_hazard} hazard rows")
+            live = int((moves[:, 0] >= 0).sum())
+            row = kv["kv_heads"] * kv["d_head"] * esize
+            # each live move reads and writes one slot of K and V per
+            # layer; the move list is read once
+            nbytes = 2 * 2 * kv["layers"] * live * row + 16 * len(moves)
+            line = {
+                "phase": "kernels", "name": "gc_compact", "dtype": tname,
+                "case": case, **kv, "moves": len(moves), "live_moves": live,
+                "hazard_rows": n_hazard, "device_launches": device_launches,
+                "equal": True, "max_abs_err": err,
+                # the host plans and uploads the list: ~0.5 ms of sleep a
+                # call keeps the card queued behind it
+                **time_both(torch, "kernel_ms", lambda: gc_compact_cuda(
+                    *pools, moves), iters, sleep_cycles=1_000_000),
+                # the copy kernels alone, and the list's upload, on the
+                # card's own clock
+                **device_ms(torch, lambda: gc_compact_cuda(*pools, moves),
+                            iters, {"device_ms": "gc_compact_kernel",
+                                    "upload_device_ms": "Memcpy HtoD"}),
+                "plain_ms": time_ms(
+                    torch, lambda: gc_compact_ref(*pools, moves), iters),
+                "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": None, "card": card,
+            }
+            # the rate of the card's own time (queued)
+            line["gb_per_s"] = nbytes / line["kernel_ms_queued"] / 1e6
+            emit(line)
+            results[("gc_compact", tname, case)] = line
+            del pools
 
         q, (kp, vp), rest = paged_inputs(
             torch, rng, dtype, kv, SERVE["max_batch"], cfg.n_heads,
@@ -729,6 +796,151 @@ def run_kernels(torch, args, card):
     return results
 
 
+# the GC kernel's cases, from full_width's state after --run-warm writes:
+# the heavy write's own GC with its group's open block full and over
+# budget (decided, drained), the emergency valve (decided, drained) and a
+# movement operation (as the state leaves it)
+GC_MODES = ("gc", "valve", "movement")
+
+
+def gc_one_inputs(torch, args, mode, d):
+    """gc_one's arguments for d drives, each in the state --run-warm
+    writes of full_width leave on the card (group d % groups in mode
+    "gc"), and its mode keywords."""
+    from repro_torch.core import simulator
+    from repro_torch.kernels.gc_one.kernel import COUNTERS, STATE_FIELDS
+
+    ctx, st, run_kw, _ = warm_drive(args, "full_width")
+    policy = simulator.policy_from_config(ctx, "cuda", **run_kw)
+    b = ctx.geom.pages_per_block
+
+    def drives(t):
+        return t.repeat(d, *[1] * (t.dim() - 1)).contiguous()
+
+    state = {k: drives(getattr(st, k).view(1) if k in COUNTERS
+                       else getattr(st, k)[None]) for k in STATE_FIELDS}
+    g = torch.arange(d, device="cuda") % ctx.n_groups
+    if mode == "gc":  # each drive's group: open block full, over budget
+        rows = torch.arange(d, device="cuda")
+        ab = state["active_blk"][rows, g].long()
+        state["fill"][rows, ab] = b
+        state["grp_alloc"][rows, g] = 0
+    gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
+    inputs = dict(state=state, gc_w=drives(gc_w[None]),
+                  g=g if mode == "gc" else None)
+    kw = dict(mode=mode, td_mode=ctx.mcfg.td_mode,
+              gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
+    return inputs, kw
+
+
+def gc_one_fresh(torch, inputs):
+    """A copy of the inputs to land one launch on: the state copied, out
+    new."""
+    d = inputs["gc_w"].shape[0]
+    return {**inputs, "state": {k: v.clone()
+                                for k, v in inputs["state"].items()},
+            "out": torch.full((d, 3), -1, dtype=torch.int64,
+                              device="cuda")}
+
+
+def gc_one_bytes(before, after, out, inputs, mode) -> int:
+    """The least bytes gc_one must move for the GCs it ran, each element
+    read once and each written once (see gc_one.cu). The scan: every
+    block's state, the group of every CLOSED block, and for the group's
+    CLOSED blocks live and each counter whose weight is nonzero (valve:
+    live of every CLOSED block first). Written: every state element the
+    launch changed, counted from the state before and after, read too
+    where the new value needs the old (counters, fill, live, group sizes,
+    erase counts); a drained victim's slots read; per drive the weights,
+    g, the pool and out."""
+    from repro_torch.core.ssd import CLOSED
+
+    d = out.shape[0]
+    overwritten = ("page_map", "slot_lba", "valid", "state", "group_of",
+                   "stamp", "trim_dead", "active_blk", "grp_surplus")
+    nbytes = 0
+    for k, v in before.items():
+        changed = int((after[k] != v).sum())
+        nbytes += changed * v.element_size() * (1 if k in overwritten else 2)
+    b = before["slot_lba"].shape[-1]
+    nbytes += int(out[:, 2].sum()) * b * 5  # the victims' slots
+    closed = before["state"] == CLOSED
+    nbytes += before["state"].numel() + 4 * int(closed.sum())
+    g = out[:, 1].clamp(min=0)
+    in_g = closed & (before["group_of"] == g[:, None])
+    weights = inputs["gc_w"][:, 1:].ne(0).sum(1)
+    nbytes += int((in_g.sum(1) * (4 + 4 * weights)).sum())
+    if mode == "valve":
+        nbytes += 4 * int(closed.sum())  # the argmin over live
+    return nbytes + d * (16 + 8 + 4 + 24)
+
+def gc_one_kernels(torch, args, card):
+    """gc_one at D = 1 and 64 in each mode from full_width's state: exact
+    against gc_one_ref on the same inputs (out, every state field), then
+    each launch timed alone from a fresh copy of the state, with the
+    host's cost (unqueued) and without (queued behind a sleep)."""
+    from repro_torch.kernels.gc_one import kernel as gc_one_kernel
+    from repro_torch.kernels.gc_one.ref import gc_one_ref
+
+    results = {}
+    for mode in GC_MODES:
+        for d in (1, 64):
+            inputs, kw = gc_one_inputs(torch, args, mode, d)
+            got, want = gc_one_fresh(torch, inputs), gc_one_fresh(torch,
+                                                                  inputs)
+            gc_one_kernel.gc_one_cuda(**got, **kw)
+            gc_one_ref(**want, **kw)
+            torch.cuda.synchronize()
+            bad = ["out"] if not torch.equal(got["out"], want["out"]) else []
+            bad += [k for k, v in want["state"].items()
+                    if not torch.equal(got["state"][k], v)]
+            check(not bad, f"gc_one {mode} D={d}: kernel != plain in {bad}")
+            decided = int(got["out"][:, 2].sum())
+            check(mode == "movement" or decided == d,
+                  f"gc_one {mode} D={d}: {decided} of {d} GCs decided")
+            times = {"kernel_ms": [], "kernel_ms_queued": [], "plain_ms": []}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            for i in range(max(3, args.iters // 50)):
+                for key in ("kernel_ms", "kernel_ms_queued"):
+                    run = gc_one_fresh(torch, inputs)
+                    torch.cuda.synchronize()
+                    if key == "kernel_ms_queued":  # ~0.5 ms at ~2 GHz
+                        torch.cuda._sleep(1_000_000)
+                    start.record()
+                    gc_one_kernel.gc_one_cuda(**run, **kw)
+                    end.record()
+                    end.synchronize()
+                    times[key].append(start.elapsed_time(end))
+                if i < 3 - (d > 1):  # the plain version: host reads
+                    run = gc_one_fresh(torch, inputs)
+                    torch.cuda.synchronize()
+                    start.record()
+                    gc_one_ref(**run, **kw)
+                    end.record()
+                    end.synchronize()
+                    times["plain_ms"].append(start.elapsed_time(end))
+            nbytes = gc_one_bytes(inputs["state"], got["state"], got["out"],
+                                  inputs, mode)
+            ms = {k: float(np.median(v)) for k, v in times.items()}
+            line = {
+                "phase": "kernels", "name": "gc_one", "case": "full_width",
+                "mode": mode, "drives": d, "td_mode": kw["td_mode"],
+                "warm_events": args.run_warm, "decided": decided,
+                "pages_moved": int((got["state"]["n_mig"]
+                                    - inputs["state"]["n_mig"]).sum()),
+                "equal": True, "max_abs_err": 0, **ms,
+                "timed_launches": len(times["kernel_ms"]),
+                "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": None, "card": card,
+            }
+            emit(line)
+            results[("gc_one", mode, d)] = line
+            del inputs, got, want
+            torch.cuda.empty_cache()
+    return results
+
+
 # -- phases -----------------------------------------------------------------
 
 def phase_kernels(torch, args, card):
@@ -845,6 +1057,7 @@ def phase_kernels(torch, args, card):
         emit(line)
         results[("compact_slots", d)] = line
     results.update(run_kernels(torch, args, card))
+    results.update(gc_one_kernels(torch, args, card))
     results.update(serving_kernels(torch, args, card))
     return results
 
@@ -909,12 +1122,14 @@ def zero_counts() -> None:
     from repro_torch.core import simulator
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.gc_compact import kernel as gc_kernel
+    from repro_torch.kernels.gc_one import kernel as gc_one_kernel
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
     from repro_torch.kernels.write_path import kernel as wp_kernel
     from repro_torch.kernels.write_run import kernel as wr_kernel
 
     wp_kernel.launches = wp_kernel.trim_launches = wr_kernel.launches = 0
     gc_kernel.launches = gc_kernel.kv_launches = 0
+    gc_kernel.kv_device_launches = gc_one_kernel.launches = 0
     paged_kernel.launches = flash_kernel.launches = 0
     simulator.host_syncs = 0
     simulator.run_stops.update(dict.fromkeys(simulator.run_stops, 0))
@@ -923,6 +1138,7 @@ def zero_counts() -> None:
 def read_launches() -> dict:
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.gc_compact import kernel as gc_kernel
+    from repro_torch.kernels.gc_one import kernel as gc_one_kernel
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
     from repro_torch.kernels.write_path import kernel as wp_kernel
     from repro_torch.kernels.write_run import kernel as wr_kernel
@@ -931,8 +1147,11 @@ def read_launches() -> dict:
         "write_run": wr_kernel.launches,
         "apply_write": wp_kernel.launches,
         "apply_trim": wp_kernel.trim_launches,
+        "gc_one": gc_one_kernel.launches,
         "compact_slots": gc_kernel.launches,
         "gc_compact": gc_kernel.kv_launches,
+        # gc_compact's device launches: one a call, two with hazard rows
+        "gc_compact_device": gc_kernel.kv_device_launches,
         "paged_attention": paged_kernel.launches,
         "flash_attention": flash_kernel.launches,
     }
@@ -954,11 +1173,17 @@ def phase_full_width(torch, args, card):
     seconds = time.perf_counter() - t0
     launches = read_launches()
     stops = dict(simulator.run_stops)
-    for name in ("write_run", "compact_slots"):
+    for name in ("write_run", "gc_one"):
         check(launches[name] > 0,
               f"full_width: the main path never launched {name}")
-    check(launches["apply_write"] == 0,
-          "full_width: a write went through the per-row apply_write")
+    check(launches["apply_write"] == launches["compact_slots"] == 0,
+          "full_width: a write went through the per-row apply_write, or a "
+          "drain through compact_slots")
+    # every heavy write's GC and movement operation is one gc_one launch,
+    # and so is each valve turn
+    check(launches["gc_one"] >= 2 * sum(stops.values()),
+          f"full_width: {launches['gc_one']} gc_one launches for "
+          f"{sum(stops.values())} heavy writes")
     assert_invariants(card_run.state, "full_width (cuda)")
 
     t0 = time.perf_counter()
@@ -991,10 +1216,17 @@ def phase_full_width(torch, args, card):
         "host_syncs_per_write": card_run.host_syncs / args.writes,
         "runs": launches["write_run"],
         "events_per_run": args.writes / launches["write_run"],
+        "erases": int(card_run.state.n_erase),
+        "gc_one_per_heavy_write": launches["gc_one"] / sum(stops.values()),
         "run_stops": stops, "launches": launches, "card": card,
     }
     emit(line)
     return line
+
+
+# host syncs of the churn path at (seed, events): the count before the GC
+# kernel, which the demoting drains' reads keep
+CHURN_SYNCS = {(0, 50_000): 5367}
 
 
 def phase_full_width_churn(torch, args, card):
@@ -1017,12 +1249,20 @@ def phase_full_width_churn(torch, args, card):
     launches = read_launches()
     syncs = simulator.host_syncs
     stops = dict(simulator.run_stops)
-    for name in ("write_run", "compact_slots"):
+    for name in ("write_run", "gc_one", "compact_slots"):
         check(launches[name] > 0,
               f"full_width_churn: the path never launched {name}")
     check(launches["apply_write"] == launches["apply_trim"] == 0,
           "full_width_churn: an event went through a per-row kernel")
     st = card_run.state
+    # gc_one decides every GC; each drain it decides demotes on the host,
+    # through compact_slots, and erases the victim
+    check(launches["compact_slots"] == int(st.n_erase),
+          f"full_width_churn: {launches['compact_slots']} compact_slots "
+          f"launches for {int(st.n_erase)} drains")
+    want = CHURN_SYNCS.get((args.seed, n))
+    check(want is None or syncs == want,
+          f"full_width_churn: {syncs} host syncs, not {want}")
     assert_invariants(st, "full_width_churn (cuda)")
     check(int(st.n_trim) > 0, "full_width_churn: no TRIM landed")
     check(int(st.n_dropped) == 0, "full_width_churn: dropped writes")
@@ -1060,6 +1300,7 @@ def phase_full_width_churn(torch, args, card):
         "host_syncs_per_write": syncs / writes,
         "runs": launches["write_run"],
         "events_per_run": n / launches["write_run"],
+        "gc_one_per_heavy_write": launches["gc_one"] / sum(stops.values()),
         "run_stops": stops, "launches": launches, "card": card,
     }
     emit(line)
@@ -1443,6 +1684,9 @@ def main() -> None:
         "write_run": "src/repro/kernels/write_path/kernel.py:66 (apply_write)"
                      " and src/repro/kernels/write_path/kernel.py:117 "
                      "(apply_trim), on the simulator's paths",
+        "gc_one": "src/repro/kernels/gc_compact/kernel.py:67 (compact_slots,"
+                  " via _run) with src/repro/core/simulator.py:1172 "
+                  "(_gc_one around it), on the simulator's paths",
         "apply_write": "src/repro/kernels/write_path/kernel.py:66",
         "apply_trim": "src/repro/kernels/write_path/kernel.py:117",
         "compact_slots": "src/repro/kernels/gc_compact/kernel.py:67",
@@ -1451,20 +1695,24 @@ def main() -> None:
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:161",
     }
     # every case each summary row holds, the one whose times it reports
-    # first: the simulator's kernels at D = 1 (its main path; write_run in
-    # full_width's state), the serving path's in the type its path runs
-    # them in (bf16 serving; the dense check's flash in fp32)
+    # first: the simulator's kernels at D = 1 (its main path; write_run and
+    # gc_one in full_width's state, gc_one's own GC drained), the serving
+    # path's in the type its path runs them in (bf16 serving, its move
+    # lists overlapping; the dense check's flash in fp32)
     cases = {
         "write_run": [(c, d) for c in RUN_CASES for d in (1, 64)],
-        **{n: [1, 64] for n in ("apply_write", "apply_trim", "compact_slots")},
-        "gc_compact": ["bfloat16", "float32"],
-        "paged_attention": ["bfloat16", "float32"],
-        "flash_attention": ["float32", "bfloat16"],
+        "gc_one": [(m, d) for m in GC_MODES for d in (1, 64)],
+        **{n: [(d,) for d in (1, 64)]
+           for n in ("apply_write", "apply_trim", "compact_slots")},
+        "gc_compact": [(t, c) for t in ("bfloat16", "float32")
+                       for c in ("overlapping", "disjoint")],
+        "paged_attention": [("bfloat16",), ("float32",)],
+        "flash_attention": [("float32",), ("bfloat16",)],
     }
     summary = []
     for name in replaces:
         first = cases[name][0]
-        k1 = kernels[(name, *first) if name == "write_run" else (name, first)]
+        k1 = kernels[(name, *first)]
         by_path = {p: line["launches"][name] for p, line in paths.items()}
         row = {
             "name": name, "route": "cuda",
@@ -1472,13 +1720,14 @@ def main() -> None:
             "replaces": replaces[name],
             "timed_case": (f"{first[0]} state, drives={first[1]}"
                            if name == "write_run" else
-                           f"drives={first}" if isinstance(first, int)
-                           else first),
+                           f"mode={first[0]}, drives={first[1]}"
+                           if name == "gc_one" else
+                           f"drives={first[0]}" if isinstance(first[0], int)
+                           else ", ".join(first)),
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(kernels[
-                (name, *c) if name == "write_run" else (name, c)][
-                "max_abs_err"] for c in cases[name]),
+            "max_abs_err": max(kernels[(name, *c)]["max_abs_err"]
+                               for c in cases[name]),
             "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
             "library_ms": k1["library_ms"],
@@ -1486,8 +1735,14 @@ def main() -> None:
         if name == "write_run":
             row.update({k: k1[k] for k in (
                 "kernel_ms_queued", "events_per_launch", "us_per_event")})
-        if name in ("paged_attention", "flash_attention"):
+        if name in ("gc_one", "gc_compact", "paged_attention",
+                    "flash_attention"):
             row["ms_queued"] = k1["kernel_ms_queued"]
+        if name == "gc_compact":  # one device launch where no row stages
+            kd = kernels[(name, first[0], "disjoint")]
+            row["disjoint"] = {k: kd[k] for k in (
+                "kernel_ms", "kernel_ms_queued", "bound_ms",
+                "device_launches")}
         if name == "paged_attention":
             row["ms_cold"] = k1["kernel_ms_cold"]
             row["ms_cold_queued"] = k1["kernel_ms_cold_queued"]

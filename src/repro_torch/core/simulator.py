@@ -27,14 +27,20 @@ device in one ``kernels/write_run`` launch a run: the kernel decides each
 write there and stops before the first heavy one (or one whose bloom insert
 would rotate the filter pair), which the host runs through
 :func:`_split_write` and :func:`_step_tail`; then the next run starts after
-it. A TRIM frees space and completes no write, so it never stops a run. A
-GC drain moves the victim's slot metadata with ``kernels/gc_compact.
-compact_slots``.
+it. A TRIM frees space and completes no write, so it never stops a run.
+Each GC of the heavy path (the group's own, the emergency valve's, a
+movement operation's) is one ``kernels/gc_one`` launch that chooses the
+group and the victim and decides on the device, as the JAX package's one
+``lax.cond`` does; under the static detector it drains the victim in the
+same launch. A drain that demotes (FDP or bloom detector) runs on the host
+after one read of the decision, and moves the victim's slot metadata with
+``kernels/gc_compact.compact_slots``.
 
-State lives on one device and is updated in place. Every decision that the
-JAX package expresses as ``lax.cond`` or ``lax.while_loop`` is Python
-control flow on one device→host read, counted in :data:`host_syncs`;
-everything between decisions is enqueued on the device without a read. The
+State lives on one device and is updated in place. Every other decision
+that the JAX package expresses as ``lax.cond`` or ``lax.while_loop`` is
+Python control flow on one device→host read, counted in
+:data:`host_syncs`; everything between decisions is enqueued on the device
+without a read. The
 WRITE/TRIM choice and the §5.1 interval boundary are host decisions with
 nothing to read: op codes come from numpy, and the write clock ``n_app``
 advances by one per WRITE. A run costs one read (where it stopped), and
@@ -69,6 +75,7 @@ from repro_torch.core.ssd import (
 )
 from repro_torch.core.workloads import OP_TRIM
 from repro_torch.kernels.gc_compact.ops import compact_slots_
+from repro_torch.kernels.gc_one.ops import gc_one_
 from repro_torch.kernels.write_run.kernel import (
     COUNTERS,
     STATE_FIELDS,
@@ -428,30 +435,6 @@ def _demote_flags(ctx: SimContext, st: SimState, lbas, g, policy):
 # garbage collection (one victim) — §5.4
 # ---------------------------------------------------------------------------
 
-def _select_victim(ctx: SimContext, st: SimState, g, gc_w):
-    """Multi-objective victim selection, maximised over CLOSED blocks of
-    group g:  S(blk) = α·(B − live) − γ·stamp − β·erase_count − τ·trim_dead.
-
-    Every term is an int32 counter cast to float32, summed in the JAX
-    package's order, and ``argmax`` returns the first maximum, as there.
-    Returns (victim, ok) as device tensors.
-    """
-    b = ctx.geom.pages_per_block
-    closed = (st.state == CLOSED) & (st.group_of == g)
-    alpha, beta, gamma, tau = gc_w.unbind()
-    score = (
-        alpha * (b - st.live).to(torch.float32)
-        - gamma * st.stamp.to(torch.float32)
-        - beta * st.erase_count.to(torch.float32)
-        - tau * st.trim_dead.to(torch.float32)
-    )
-    victim = torch.argmax(torch.where(closed, score, -torch.inf))
-    # a fully-live victim frees nothing: skip it unless the policy is
-    # age-driven (γ > 0: LRU must clean stale blocks even when full)
-    ok = _get(closed, victim) & ((gamma > 0.0) | (_get(st.live, victim) < b))
-    return victim, ok
-
-
 def _scatter_live(t: torch.Tensor, idx, vals, mask) -> None:
     """``t[idx[mask]] = vals[mask]`` in place without a host read: rows
     outside the mask store again what the first masked row stores (or, if
@@ -485,86 +468,6 @@ def _erase_victim(st: SimState, victim, clock) -> None:
     _set(st.trim_dead, victim, 0)
     st.erase_total.add_(1)
     st.erase_sq_total.add_(2 * e_old + 1)
-
-
-def _gc_drain_bulk_static(ctx: SimContext, st: SimState, victim, g) -> None:
-    """Migrate every live page of ``victim`` back into group g, then erase
-    it (the JAX package's static-detector drain).
-
-    Live pages fill the group's active block, then at most ONE fresh block:
-    the lowest-index FREE block, what the sequential pop hands out. The
-    slot contents move through ``compact_slots`` as one move list; the rest
-    are masked single-index stores.
-    """
-    b = ctx.geom.pages_per_block
-    k = ctx.geom.n_blocks
-    dev = st.device
-    lbas = _get(st.slot_lba, victim)       # [B]; dead slots hold -1
-    is_live = _get(st.valid, victim)       # [B]
-    lbas_c = lbas.clamp(min=0).long()
-    live_i = is_live.to(torch.int32)
-    n_live = live_i.sum(dtype=torch.int32)
-    rank = torch.cumsum(live_i, 0, dtype=torch.int32) - live_i
-
-    ab = _get(st.active_blk, g)
-    has_ab = ab >= 0
-    ab_c = ab.clamp(min=0).long()
-    fill_ab = torch.where(has_ab, _get(st.fill, ab_c), b)
-    space = b - fill_ab.clamp(max=b)       # free slots in the active block
-    claim = n_live > space
-    seal = claim & has_ab
-
-    new_blk = torch.argmax((st.state == FREE).to(torch.int32))
-    claim_ok = claim & (st.free_blocks >= 1)
-    new_c = torch.where(claim_ok, new_blk, 0)
-
-    # -- per-page destinations ---------------------------------------------
-    in_old = rank < space
-    dst_blk = torch.where(in_old, ab_c, new_c).to(torch.int32)
-    dst_slot = torch.where(in_old, fill_ab + rank, rank - space)
-    ok = is_live & (in_old | claim_ok)
-    n_old = torch.minimum(n_live, space)
-    n_new = torch.where(claim_ok, n_live - n_old, 0)
-    n_ok = n_old + n_new
-
-    # -- seal / claim bookkeeping ------------------------------------------
-    _set(st.state, ab_c, torch.where(seal, CLOSED, _get(st.state, ab_c)))
-    _set(st.state, new_c, torch.where(claim_ok, OPEN, _get(st.state, new_c)))
-    _set(st.group_of, new_c,
-         torch.where(claim_ok, g, _get(st.group_of, new_c)))
-    _set(st.stamp, new_c,
-         torch.where(claim_ok, st.clock, _get(st.stamp, new_c)))
-    clock = st.clock + claim_ok.to(torch.int32)
-    _add(st.fill, ab_c, torch.where(has_ab, n_old, 0))
-    _set(st.fill, new_c, torch.where(claim_ok, n_new, _get(st.fill, new_c)))
-    _add(st.live, ab_c, torch.where(has_ab, n_old, 0))
-    _add(st.live, new_c, torch.where(claim_ok, n_new, 0))
-    _set(st.active_blk, g, torch.where(claim_ok, new_blk, ab))
-
-    # -- land the pages -----------------------------------------------------
-    idx = torch.arange(b, dtype=torch.int32, device=dev)
-    src = torch.where(ok, victim, -1).to(torch.int32)
-    db = torch.where(ok, dst_blk, k)       # masked rows land nowhere
-    compact_slots_(
-        st.slot_lba[None], st.valid[None],
-        src[None], idx[None], db[None], dst_slot.to(torch.int32)[None],
-    )
-    _scatter_live(
-        st.page_map, lbas_c, torch.where(ok, dst_blk * b + dst_slot, -1),
-        is_live,
-    )
-
-    # -- erase the victim ---------------------------------------------------
-    # +1 physical block if one was claimed, -1 for the erased victim
-    _add(st.grp_phys, g, torch.where(claim_ok, 0, -1))
-    st.grp_surplus.copy_(surplus_of(st.grp_active, st.grp_phys, st.grp_alloc))
-    st.free_blocks.add_(1 - claim_ok.to(torch.int32))
-    st.mapped_pages.sub_(n_live - n_ok)
-    _add(st.grp_size, g, n_ok - n_live)
-    _add(st.grp_live, g, n_ok - n_live)
-    st.n_mig.add_(n_ok)
-    st.n_dropped.add_(n_live - n_ok)
-    _erase_victim(st, victim, clock)
 
 
 def _demotion_targets(st: SimState, flagged: np.ndarray, g) -> torch.Tensor:
@@ -705,17 +608,22 @@ def _gc_drain_bulk(ctx: SimContext, st: SimState, victim, g, policy) -> None:
     _erase_victim(st, victim, clock)
 
 
-def _gc_one(ctx: SimContext, st: SimState, g, policy, gc_w,
-            enabled=True) -> None:
-    """GC one victim of group g if ``enabled`` and a victim qualifies; the
-    pool must hold a block for the migrations (callers keep it ≥ 2). A
-    detector that can demote takes the general drain."""
-    victim, ok = _select_victim(ctx, st, g, gc_w)
-    if _when(ok & (st.free_blocks >= 1) & enabled):
-        if ctx.mcfg.td_mode == "static":
-            _gc_drain_bulk_static(ctx, st, victim, g)
-        else:
-            _gc_drain_bulk(ctx, st, victim, g, policy)
+def _gc_one(ctx: SimContext, st: SimState, policy, mode: str,
+            g=None) -> None:
+    """One GC (§5.4) in one ``gc_one_`` launch: the group by ``mode`` ("gc":
+    g, enabled when it needs a block it is not entitled to or the pool is
+    at reserve; "valve": where the fewest live pages are, greedy weights;
+    "movement": the most block-surplus group), the victim, and the
+    decision, all on the device. The static detector's drain runs in the
+    same launch, without a host read. A detector that can demote takes the
+    general drain here, on one read of the decision."""
+    gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
+    out = torch.empty((1, 3), dtype=torch.int64, device=st.device)
+    gc_one_(st.drive_axis, gc_w[None], None if g is None else g.reshape(1),
+            out, mode=mode, td_mode=ctx.mcfg.td_mode,
+            gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
+    if ctx.mcfg.td_mode != "static" and _when(out[0, 2] != 0):
+        _gc_drain_bulk(ctx, st, out[0, 0], out[0, 1], policy)
 
 
 # ---------------------------------------------------------------------------
@@ -871,27 +779,16 @@ def _step_tail(ctx: SimContext, st: SimState, lba, w: int, g,
     the heavy path, downstream of invalidate + target selection. ``w`` is
     the write clock (``n_app`` before this write)."""
     mcfg = ctx.mcfg
-    b = ctx.geom.pages_per_block
 
     # GC when the group needs a new block it is not entitled to, or the
-    # pool is at reserve
-    blk = _get(st.active_blk, g)
-    needs_block = torch.where(
-        blk >= 0, _get(st.fill, blk.clamp(min=0)) >= b, True
-    )
-    over_budget = _get(st.grp_phys, g) >= _get(st.grp_alloc, g)
-    low_pool = st.free_blocks <= mcfg.gc_reserve_blocks
-    _gc_one(ctx, st, g, policy, policy["gc_w"],
-            enabled=needs_block & (over_budget | low_pool))
+    # pool is at reserve (the predicate is read on the device)
+    _gc_one(ctx, st, policy, "gc", g)
 
     # emergency valve: while the pool is (nearly) empty, greedily reclaim
     # the best victim anywhere (its group pays), a bounded number of times
     tries = 0
     while tries < mcfg.valve_max_tries and _when(st.free_blocks < 2):
-        score = torch.where(st.state == CLOSED, st.live, INT_MAX)
-        victim = torch.argmin(score)
-        g_v = _get(st.group_of, victim).clamp(min=0).long()
-        _gc_one(ctx, st, g_v, policy, policy["gc_w_greedy"])
+        _gc_one(ctx, st, policy, "valve")
         tries += 1
 
     _write_page(ctx, st, lba, g)
@@ -901,11 +798,7 @@ def _step_tail(ctx: SimContext, st: SimState, lba, w: int, g,
     # movement operations (§5.3): one compaction GC on the most surplus
     # group, donating the redeemed block to the pool
     if mcfg.movement_ops:
-        g_s = torch.argmax(st.grp_surplus)
-        _gc_one(
-            ctx, st, g_s, policy, policy["gc_w"],
-            enabled=(_get(st.grp_surplus, g_s) >= 1) & (st.free_blocks >= 2),
-        )
+        _gc_one(ctx, st, policy, "movement")
 
     # interval completion (§5.1): n_app == w + 1 after this write
     if (w + 1) % ctx.h == 0:

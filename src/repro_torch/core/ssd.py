@@ -15,6 +15,8 @@ unmapped).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import types
 
 import numpy as np
 import torch
@@ -169,6 +171,14 @@ SIM_STATE_DTYPES = {
     "interval": torch.int32, "cooldown": torch.int32,
 }
 SIM_STATE_FIELDS = tuple(SIM_STATE_DTYPES)
+# the fields that are one value a drive (shape [], or [1] as the JAX
+# package may hand a counter over)
+COUNTER_FIELDS = (
+    "erase_total", "erase_sq_total", "free_blocks", "mapped_pages",
+    "retired_blocks", "spares_left", "drive_status", "degraded_at",
+    "n_erase_fail", "n_halted", "fault_draws", "n_app", "n_mig", "n_erase",
+    "n_dropped", "n_trim", "clock", "interval", "cooldown",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,6 +251,16 @@ class SimState:
     @property
     def device(self) -> torch.device:
         return self.page_map.device
+
+    @functools.cached_property
+    def drive_axis(self) -> types.MappingProxyType:
+        """Every field as a view with a leading drive axis of 1 (a counter
+        as ``[1]``), the layout the batched kernels take, read-only. Made
+        once per state: the fields are never rebound, only updated in
+        place, so a kernel may check and pack it once."""
+        return types.MappingProxyType({
+            k: v.view(1) if k in COUNTER_FIELDS else v[None]
+            for k, v in self.items()})
 
     def to(self, device) -> "SimState":
         """This state on ``device`` (itself when it is already there)."""

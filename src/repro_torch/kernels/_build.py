@@ -42,8 +42,10 @@ SIGNATURES = {
         "write_run_launch", (_P, _I, _P, _I, _I, _I, _I, _I, _P)),
     "compact_slots": (
         "compact_slots_launch", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "gc_one": (
+        "gc_one_launch", (_P, _I, _P, _I, _I, _I, _I, _P)),
     "gc_compact": (
-        "gc_compact_launch", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+        "gc_compact_launch", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "paged_attention": (
         "paged_attention_launch",
         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),

@@ -1,0 +1,438 @@
+// One garbage collection of the SSD simulator (choose the group and the
+// victim, decide, and under the static detector drain), batched over
+// drives, in one launch.
+//
+// Replaces, on the simulator's paths, the Pallas TPU kernel
+// src/repro/kernels/gc_compact/kernel.py (_compact_kernel in _run, reached
+// through compact_slots from the static drain) together with the host
+// chain around it: the JAX package's _gc_one (src/repro/core/
+// simulator.py:1172), which folds `enabled` into one lax.cond around
+// victim selection (_select_victim, :740) and the drain
+// (_gc_drain_bulk_static, :1009). The port ran that as ~33 PyTorch ops to
+// choose, one host read to decide, and ~237 ops plus compact_slots.cu to
+// drain. Here one block of threads serves one drive:
+//
+//   group   by mode, as _step_tail computes it: kModeGc takes the given g
+//           and enabled = needs_block & (over_budget | low_pool), read from
+//           the state at launch; kModeValve the group of the CLOSED block
+//           with the fewest live pages (first index), enabled; kModeMove
+//           the group of the largest surplus (first index), enabled when
+//           that surplus is >= 1 and the pool holds >= 2 blocks.
+//   victim  S = ((α·(B − live) − γ·stamp) − β·erase_count) − τ·trim_dead
+//           in float32 over the group's CLOSED blocks, −inf elsewhere,
+//           each product and difference rounded on its own as PyTorch
+//           rounds them (__fmul_rn, __fsub_rn: no contraction into FMAs);
+//           the argmax is the first maximum, index 0 when all are −inf.
+//           ok = closed[v] & (γ > 0 | live[v] < B); do = ok & free >= 1 &
+//           enabled. out[d] = (victim, g, do).
+//   drain   (static detector only, when do) exactly _gc_drain_bulk_static:
+//           the live slots' ranks from warp ballots, pages into the
+//           group's active block and then at most one fresh block (the
+//           lowest FREE one), seal and claim bookkeeping, page_map of the
+//           moved pages, pages dropped when no block can be claimed, the
+//           surpluses of every group, then the victim erased.
+//
+// Under the FDP and bloom detectors the drain demotes pages one group
+// colder and stays on the host (simulator._gc_drain_bulk): the kernel only
+// decides, and the host reads `do` from out.
+//
+// What bounds it: the scan. A drive's victim search reads each block's
+// state (1 byte), the group of each CLOSED block and, for the group's
+// CLOSED blocks, only the counters whose weight is nonzero: 9-21 bytes a
+// block, ~0.1 MB at Table-2 size (K = 8,192), ~0.03 µs over HBM. A drain
+// moves B slots (5 bytes each) and B map entries. So one launch is a few
+// µs of device time, and what the design removes is the host's: the
+// launches and the read of the chain it replaces. One block of 1,024
+// threads per drive scans K / 1,024 blocks a thread, reduces (score, index)
+// pairs by warp shuffles and then across the warps in shared memory (lower
+// index winning ties), and runs the drain's scalar bookkeeping on thread 0
+// in _gc_drain_bulk_static's order, so stores to one block alias as there.
+// D > 1 fills the card with drives.
+//
+// Built with nvcc into a shared library with a plain C interface
+// (repro_torch/kernels/_build.py) and bound with ctypes; no fast-math.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGroups = 64;
+constexpr int kMaxPages = kThreads;  // pages per block: one thread a slot
+constexpr int8_t kFree = 0, kOpen = 1, kClosed = 2;  // core/ssd.py
+constexpr int32_t kIntMax = 2147483647;
+enum Mode { kModeGc = 0, kModeValve = 1, kModeMove = 2 };  // kernel.MODES
+
+// Device pointers, one per tensor, in gc_one/kernel.py's ORDER; every
+// tensor has a leading drive axis.
+struct Ptrs {
+  int32_t* page_map;        // [D, LBA]
+  int32_t* slot_lba;        // [D, K * B]
+  uint8_t* valid;           // [D, K * B]
+  int32_t* live;            // [D, K]
+  int32_t* fill;            // [D, K]
+  int32_t* stamp;           // [D, K]
+  int8_t* state;            // [D, K]
+  int32_t* group_of;        // [D, K]
+  int32_t* erase_count;     // [D, K]
+  int32_t* trim_dead;       // [D, K]
+  int32_t* erase_total;     // [D]
+  int32_t* erase_sq_total;  // [D]
+  int32_t* active_blk;      // [D, G]
+  int32_t* grp_phys;        // [D, G]
+  const int32_t* grp_alloc;    // [D, G]
+  const uint8_t* grp_active;   // [D, G]
+  int32_t* grp_surplus;     // [D, G]
+  int32_t* grp_size;        // [D, G]
+  int32_t* grp_live;        // [D, G]
+  int32_t* free_blocks;     // [D]
+  int32_t* mapped_pages;    // [D]
+  int32_t* n_mig;           // [D]
+  int32_t* n_dropped;       // [D]
+  int32_t* n_erase;         // [D]
+  int32_t* clock;           // [D]
+  const float* gc_w;        // [D, 4]: (α, β, γ, τ)
+  const int64_t* g;         // [D], kModeGc only (null otherwise)
+  int64_t* out;             // [D, 3]: (victim, g, do)
+};
+constexpr int kNumPtrs = sizeof(Ptrs) / sizeof(void*);
+
+// Sizes, in the order gc_one_cuda (gc_one/kernel.py) packs them.
+struct Dims {
+  int64_t lba_pages, n_blocks, pages_per_block, n_groups, reserve;
+};
+constexpr int kNumDims = sizeof(Dims) / sizeof(int64_t);
+
+// (score, index) with the larger score winning, the lower index on ties.
+__device__ __forceinline__ bool beats_max(float a, int ia, float b, int ib) {
+  return a > b || (a == b && ia < ib);
+}
+// (value, index) with the smaller value winning, the lower index on ties.
+__device__ __forceinline__ bool beats_min(int a, int ia, int b, int ib) {
+  return a < b || (a == b && ia < ib);
+}
+
+// The block's argmax of (score, index); every thread gets the index.
+__device__ int block_argmax(float v, int i, float* s_v, int* s_i) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int off = 16; off > 0; off /= 2) {
+    const float ov = __shfl_down_sync(0xffffffffu, v, off);
+    const int oi = __shfl_down_sync(0xffffffffu, i, off);
+    if (beats_max(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+  if (lane == 0) { s_v[warp] = v; s_i[warp] = i; }
+  __syncthreads();
+  if (warp == 0) {
+    v = s_v[lane];
+    i = s_i[lane];
+    for (int off = 16; off > 0; off /= 2) {
+      const float ov = __shfl_down_sync(0xffffffffu, v, off);
+      const int oi = __shfl_down_sync(0xffffffffu, i, off);
+      if (beats_max(ov, oi, v, i)) { v = ov; i = oi; }
+    }
+    if (lane == 0) s_i[0] = i;
+  }
+  __syncthreads();
+  const int best = s_i[0];
+  __syncthreads();  // s_v / s_i may be reused
+  return best;
+}
+
+// The block's argmin of (value, index); every thread gets the index.
+__device__ int block_argmin(int v, int i, int* s_v, int* s_i) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int off = 16; off > 0; off /= 2) {
+    const int ov = __shfl_down_sync(0xffffffffu, v, off);
+    const int oi = __shfl_down_sync(0xffffffffu, i, off);
+    if (beats_min(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+  if (lane == 0) { s_v[warp] = v; s_i[warp] = i; }
+  __syncthreads();
+  if (warp == 0) {
+    v = s_v[lane];
+    i = s_i[lane];
+    for (int off = 16; off > 0; off /= 2) {
+      const int ov = __shfl_down_sync(0xffffffffu, v, off);
+      const int oi = __shfl_down_sync(0xffffffffu, i, off);
+      if (beats_min(ov, oi, v, i)) { v = ov; i = oi; }
+    }
+    if (lane == 0) s_i[0] = i;
+  }
+  __syncthreads();
+  const int best = s_i[0];
+  __syncthreads();
+  return best;
+}
+
+template <int MODE, bool DRAIN>
+__global__ void __launch_bounds__(kThreads)
+gc_one_kernel(const Ptrs p, const Dims n) {
+  __shared__ float s_fv[kWarps];
+  __shared__ int s_iv[kWarps], s_ii[kWarps], s_wcount[kWarps];
+  __shared__ int s_g, s_enabled;
+  __shared__ int32_t s_lba[kMaxPages];
+  __shared__ int s_scalars[6];  // space, fill_ab, ab_c, new_c, claim_ok, go
+
+  const int64_t d = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int G = static_cast<int>(n.n_groups);
+  const int K = static_cast<int>(n.n_blocks);
+  const int B = static_cast<int>(n.pages_per_block);
+  const int64_t LBA = n.lba_pages;
+  int32_t* page_map = p.page_map + d * LBA;
+  int32_t* slot_lba = p.slot_lba + d * K * static_cast<int64_t>(B);
+  uint8_t* valid = p.valid + d * K * static_cast<int64_t>(B);
+  int32_t* live = p.live + d * K;
+  int32_t* fill = p.fill + d * K;
+  int32_t* stamp = p.stamp + d * K;
+  int8_t* state = p.state + d * K;
+  int32_t* group_of = p.group_of + d * K;
+  int32_t* erase_count = p.erase_count + d * K;
+  int32_t* trim_dead = p.trim_dead + d * K;
+  int32_t* active_blk = p.active_blk + d * G;
+  int32_t* grp_phys = p.grp_phys + d * G;
+  const int32_t* grp_alloc = p.grp_alloc + d * G;
+  const uint8_t* grp_active = p.grp_active + d * G;
+  int32_t* grp_surplus = p.grp_surplus + d * G;
+  int32_t* grp_size = p.grp_size + d * G;
+  int32_t* grp_live = p.grp_live + d * G;
+  const float alpha = p.gc_w[4 * d], beta = p.gc_w[4 * d + 1];
+  const float gamma = p.gc_w[4 * d + 2], tau = p.gc_w[4 * d + 3];
+  const int32_t free0 = p.free_blocks[d];
+
+  // -- the group, and whether this GC is enabled ---------------------------
+  if (MODE == kModeValve) {
+    // the CLOSED block with the fewest live pages anywhere; its group pays
+    int best = kIntMax, bi = kIntMax;
+    for (int i = tid; i < K; i += kThreads) {
+      const int v = state[i] == kClosed ? live[i] : kIntMax;
+      if (beats_min(v, i, best, bi)) { best = v; bi = i; }
+    }
+    const int v0 = block_argmin(best, bi, s_iv, s_ii);
+    if (tid == 0) {
+      const int32_t gv = max(group_of[v0], 0);
+      s_g = gv < G ? gv : -1;
+      s_enabled = 1;
+    }
+  } else if (tid == 0) {
+    if (MODE == kModeGc) {
+      const int64_t g = p.g[d];
+      int enabled = 0;
+      if (g >= 0 && g < G) {
+        const int32_t blk = active_blk[g];
+        const bool needs_block = blk >= 0 ? fill[min(blk, K - 1)] >= B : true;
+        const bool over_budget = grp_phys[g] >= grp_alloc[g];
+        const bool low_pool = free0 <= n.reserve;
+        enabled = needs_block && (over_budget || low_pool);
+      }
+      s_g = g >= 0 && g < G ? static_cast<int>(g) : -1;  // -1: no group
+      s_enabled = enabled;
+    } else {  // kModeMove: the first group of the largest surplus
+      int gs = 0;
+      for (int i = 1; i < G; ++i) {
+        if (grp_surplus[i] > grp_surplus[gs]) gs = i;
+      }
+      s_g = gs;
+      s_enabled = grp_surplus[gs] >= 1 && free0 >= 2;
+    }
+  }
+  __syncthreads();
+  const int g = s_g;
+
+  // -- the victim: the first best score over the group's CLOSED blocks ----
+  float best = -CUDART_INF_F;
+  int bi = kIntMax, first_free = K;
+  for (int i = tid; i < K; i += kThreads) {
+    const int8_t st = state[i];
+    if (DRAIN && st == kFree && i < first_free) first_free = i;
+    float score = -CUDART_INF_F;
+    if (st == kClosed && group_of[i] == g) {
+      // PyTorch's order, each op rounded: ((α·x − γ·y) − β·z) − τ·w; a
+      // zero weight's counter is not read (its product is +0 either way)
+      score = __fmul_rn(alpha, __int2float_rn(B - live[i]));
+      score = __fsub_rn(score, __fmul_rn(
+          gamma, gamma != 0.0f ? __int2float_rn(stamp[i]) : 0.0f));
+      score = __fsub_rn(score, __fmul_rn(
+          beta, beta != 0.0f ? __int2float_rn(erase_count[i]) : 0.0f));
+      score = __fsub_rn(score, __fmul_rn(
+          tau, tau != 0.0f ? __int2float_rn(trim_dead[i]) : 0.0f));
+    }
+    if (beats_max(score, i, best, bi)) { best = score; bi = i; }
+  }
+  const int v = block_argmax(best, bi, s_fv, s_ii);
+  if (DRAIN) {  // the lowest FREE block (argmax of state == FREE)
+    first_free = block_argmin(first_free, first_free, s_iv, s_ii);
+  }
+
+  if (tid == 0) {
+    const bool closed = state[v] == kClosed && group_of[v] == g;
+    const bool ok = closed && (gamma > 0.0f || live[v] < B);
+    // an active block outside the drive (never made) refuses the drain
+    const bool go = g >= 0 && s_enabled && ok && free0 >= 1 &&
+                    active_blk[g] < K;
+    p.out[3 * d] = v;
+    p.out[3 * d + 1] = g;
+    p.out[3 * d + 2] = go;
+    s_scalars[5] = go;
+  }
+  if (!DRAIN) return;
+  __syncthreads();
+  if (!s_scalars[5]) return;
+
+  // -- the drain: the victim's live slots and their ranks ------------------
+  const int64_t vrow = static_cast<int64_t>(v) * B;
+  const int lane = tid % 32, warp = tid / 32;
+  bool is_live = false;
+  int32_t lba = -1;
+  if (tid < B) {
+    is_live = valid[vrow + tid] != 0;
+    lba = slot_lba[vrow + tid];
+    s_lba[tid] = lba;
+  }
+  const unsigned ballot = __ballot_sync(0xffffffffu, is_live);
+  if (lane == 0) s_wcount[warp] = __popc(ballot);
+  __syncthreads();
+  int base = 0, n_live = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    base += w < warp ? s_wcount[w] : 0;
+    n_live += s_wcount[w];
+  }
+  const int rank = base + __popc(ballot & ((1u << lane) - 1u));
+
+  // -- seal / claim bookkeeping, in _gc_drain_bulk_static's order ----------
+  if (tid == 0) {
+    const int32_t ab = active_blk[g];
+    const bool has_ab = ab >= 0;
+    const int ab_c = max(ab, 0);
+    const int fill_ab = has_ab ? fill[ab_c] : B;
+    const int space = B - min(fill_ab, B);
+    const bool claim = n_live > space;
+    const bool seal = claim && has_ab;
+    const int new_blk = first_free < K ? first_free : 0;
+    const bool claim_ok = claim && free0 >= 1;
+    const int new_c = claim_ok ? new_blk : 0;
+    const int n_old = min(n_live, space);
+    const int n_new = claim_ok ? n_live - n_old : 0;
+    const int n_ok = n_old + n_new;
+    int32_t clock = p.clock[d];
+    if (seal) state[ab_c] = kClosed;
+    if (claim_ok) {
+      state[new_c] = kOpen;
+      group_of[new_c] = g;
+      stamp[new_c] = clock;
+      clock += 1;
+    }
+    if (has_ab) fill[ab_c] += n_old;
+    if (claim_ok) fill[new_c] = n_new;
+    if (has_ab) live[ab_c] += n_old;
+    if (claim_ok) {
+      live[new_c] += n_new;
+      active_blk[g] = new_blk;
+    }
+    // +1 physical block if one was claimed, -1 for the erased victim
+    if (!claim_ok) grp_phys[g] -= 1;
+    for (int i = 0; i < G; ++i) {
+      grp_surplus[i] =
+          grp_active[i] ? grp_phys[i] - grp_alloc[i] : -kIntMax;
+    }
+    p.free_blocks[d] = free0 + (claim_ok ? 0 : 1);
+    p.mapped_pages[d] -= n_live - n_ok;
+    grp_size[g] += n_ok - n_live;
+    grp_live[g] += n_ok - n_live;
+    p.n_mig[d] += n_ok;
+    p.n_dropped[d] += n_live - n_ok;
+    // erase the victim
+    const int32_t e_old = erase_count[v];
+    state[v] = kFree;
+    group_of[v] = -1;
+    fill[v] = 0;
+    live[v] = 0;
+    stamp[v] = clock;
+    p.clock[d] = clock + 1;
+    p.n_erase[d] += 1;
+    erase_count[v] = e_old + 1;
+    trim_dead[v] = 0;
+    p.erase_total[d] += 1;
+    p.erase_sq_total[d] += 2 * e_old + 1;
+    s_scalars[0] = space;
+    s_scalars[1] = fill_ab;
+    s_scalars[2] = ab_c;
+    s_scalars[3] = new_c;
+    s_scalars[4] = claim_ok;
+  }
+  __syncthreads();
+
+  // -- land the pages (every victim slot was read above) -------------------
+  if (tid < B && is_live) {
+    const int space = s_scalars[0];
+    const bool in_old = rank < space;
+    const int dst_blk = in_old ? s_scalars[2] : s_scalars[3];
+    const int dst_slot = in_old ? s_scalars[1] + rank : rank - space;
+    const bool lands = in_old || s_scalars[4];
+    const int64_t f = static_cast<int64_t>(dst_blk) * B + dst_slot;
+    if (lands) {
+      slot_lba[f] = lba;
+      valid[f] = 1;
+    }
+    // a live slot's page is in the drive; the guard keeps a broken one's
+    // store inside it. No block to claim: the page is dropped.
+    if (lba >= 0 && lba < LBA) page_map[lba] = lands ? static_cast<int32_t>(f) : -1;
+  }
+  __syncthreads();
+  if (tid < B) {  // the erased victim's slots
+    slot_lba[vrow + tid] = -1;
+    valid[vrow + tid] = 0;
+  }
+}
+
+template <int MODE>
+cudaError_t launch_drain(bool drain, int n_drives, const Ptrs& p,
+                         const Dims& n, cudaStream_t stream) {
+  if (drain) {
+    gc_one_kernel<MODE, true><<<n_drives, kThreads, 0, stream>>>(p, n);
+  } else {
+    gc_one_kernel<MODE, false><<<n_drives, kThreads, 0, stream>>>(p, n);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: kNumPtrs device pointers (host array) in Ptrs' order; dims:
+// kNumDims sizes in Dims' order; mode: kernel.MODES' index; drain: 1 under
+// the static detector. Returns a CUDA error code (0: launched);
+// cudaErrorInvalidValue for a count, size or mode the kernel does not take.
+extern "C" int gc_one_launch(void* const* ptrs, int n_ptrs,
+                             const long long* dims, int n_dims, int n_drives,
+                             int mode, int drain, void* stream) {
+  if (n_ptrs != kNumPtrs || n_dims != kNumDims || n_drives < 1 ||
+      mode < kModeGc || mode > kModeMove) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Ptrs p;
+  void** slots = reinterpret_cast<void**>(&p);
+  for (int i = 0; i < kNumPtrs; ++i) slots[i] = ptrs[i];
+  Dims n;
+  int64_t* sizes = reinterpret_cast<int64_t*>(&n);
+  for (int i = 0; i < kNumDims; ++i) sizes[i] = dims[i];
+  if (n.n_groups < 1 || n.n_groups > kMaxGroups || n.n_blocks < 1 ||
+      n.n_blocks > kIntMax || n.pages_per_block < 1 ||
+      n.pages_per_block > kMaxPages || (mode == kModeGc && !p.g)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kModeValve:
+      return static_cast<int>(launch_drain<kModeValve>(drain, n_drives, p,
+                                                       n, s));
+    case kModeMove:
+      return static_cast<int>(launch_drain<kModeMove>(drain, n_drives, p,
+                                                      n, s));
+    default:
+      return static_cast<int>(launch_drain<kModeGc>(drain, n_drives, p, n,
+                                                    s));
+  }
+}

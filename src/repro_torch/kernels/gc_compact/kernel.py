@@ -6,6 +6,7 @@ simulator's slot compaction (``kernels/csrc/compact_slots.cu``, reached as
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -55,26 +56,52 @@ def compact_slots_cuda(slot_lba, valid, src_block, src_slot, dst_block,
     launches += 1
 
 
-# KV-pool compaction (gc_compact): launches since the count was last set to 0
+# KV-pool compaction (gc_compact): calls that launched since the count was
+# last set to 0, and the device launches they made (1, or 2 with hazards)
 kv_launches = 0
+kv_device_launches = 0
 
 
-def check_moves(moves, n_blocks: int, page: int) -> None:
-    """Raise unless ``moves`` is a host int32 [M, 4] tensor of rows
-    (src_block, src_slot, dst_block, dst_slot) whose live rows (src_block
-    >= 0) lie inside the pool. The move list is built on the host, so it
-    is checked there and no row is skipped silently."""
+def plan_moves(moves, n_blocks: int, page: int):
+    """One numpy pass over the host move list: check it and plan the copy.
+
+    ``moves`` is a host int32 [M, 4] tensor of rows (src_block, src_slot,
+    dst_block, dst_slot); a row with src_block < 0 is a no-op and is
+    dropped. Raises unless every live row lies inside the pool of
+    ``n_blocks`` × ``page`` slots (the list is built on the host and
+    checked there, so no row is skipped silently), and on two live rows
+    with one destination: under the gather-then-scatter contract they have
+    no order, and the block manager never makes them. Returns (rows,
+    n_hazard): the live rows as an int32 [m, 4] array with the n_hazard
+    hazard rows first, the rows whose source slot is some row's
+    destination. Only those must be read before the copy writes."""
     if (moves.device.type != "cpu" or moves.dtype != torch.int32
             or moves.dim() != 2 or moves.shape[1] != 4):
         raise ValueError("gc_compact: wants host int32 moves [M, 4], got "
                          f"{moves.dtype} {tuple(moves.shape)} on "
                          f"{moves.device}")
-    live = moves[moves[:, 0] >= 0]
-    bad = ((live[:, [0, 2]] >= n_blocks) | (live[:, [1, 3]] >= page)).any(1)
-    bad |= (live < 0).any(1)
-    if bool(bad.any()):
+    mv = moves.numpy()
+    keep = mv[:, 0] >= 0
+    live = mv if keep.all() else mv.compress(keep, axis=0)
+    if len(live) == 0:
+        return live, 0
+    blk, slot = live[:, 0::2], live[:, 1::2]  # (src, dst) columns
+    if (live.min() < 0 or blk.max() >= n_blocks or slot.max() >= page):
+        bad = ((blk >= n_blocks) | (slot >= page)).any(1)
+        bad |= (live < 0).any(1)
         raise IndexError(f"gc_compact: moves outside a pool of {n_blocks} "
                          f"blocks × {page} slots: {live[bad][:4].tolist()}")
+    flat = blk.astype(np.int64) * page + slot  # [m, 2] slot indices
+    lands = np.bincount(flat[:, 1], minlength=n_blocks * page)
+    if lands.max() > 1:
+        twice = [divmod(int(f), page) for f in np.flatnonzero(lands > 1)[:4]]
+        raise ValueError("gc_compact: two moves land on one slot "
+                         f"(block, slot): {twice}")
+    hazard = lands[flat[:, 0]] > 0
+    n_hazard = int(np.count_nonzero(hazard))
+    if n_hazard:  # hazard rows first, each part in list order
+        live = live.take(np.argsort(~hazard, kind="stable"), axis=0)
+    return np.ascontiguousarray(live), n_hazard
 
 
 def check_kv_args(k_pools, v_pools) -> None:
@@ -94,27 +121,36 @@ def check_kv_args(k_pools, v_pools) -> None:
 
 
 def gc_compact_cuda(k_pools, v_pools, moves) -> None:
-    """Launch the gather and the scatter on the current stream; updates the
-    pools in place. ``moves`` is the host [M, 4] int32 move list; an empty
-    one launches nothing."""
-    global kv_launches
+    """Plan the host move list [M, 4] int32 (:func:`plan_moves`), upload
+    the planned rows from pinned memory without waiting, and launch the
+    copy on the current stream (two launches when some row's source is
+    another's destination); updates the pools in place. A list without a
+    live row launches nothing."""
+    global kv_launches, kv_device_launches
     check_kv_args(k_pools, v_pools)
     n_layers, n, p = k_pools.shape[:3]
-    check_moves(moves, n, p)
+    rows, n_hazard = plan_moves(moves, n, p)
     if not k_pools.is_cuda:
         raise ValueError(f"gc_compact_cuda: tensors on {k_pools.device}")
-    row_bytes = k_pools[0, 0, 0].numel() * k_pools.element_size()
-    m = moves.shape[0]
+    m = len(rows)
     if m == 0:  # nothing to move: no launch, and none counted
         return
-    dev_moves = moves.to(k_pools.device)
-    scratch = torch.empty(2 * n_layers * m * row_bytes, dtype=torch.uint8,
-                          device=k_pools.device)
+    row_vecs = k_pools[0, 0, 0].numel() * k_pools.element_size() // 16
+    pinned = torch.empty((m, 4), dtype=torch.int32, pin_memory=True)
+    pinned.numpy()[:] = rows
+    # the pinned block is held by the caching host allocator until the
+    # copy it was queued for has run
+    dev_rows = pinned.to(k_pools.device, non_blocking=True)
+    scratch = (torch.empty(2 * n_layers * n_hazard * row_vecs * 16,
+                           dtype=torch.uint8, device=k_pools.device)
+               if n_hazard else None)
     fn = _build.launcher("gc_compact")
     err = fn(
-        k_pools.data_ptr(), v_pools.data_ptr(), dev_moves.data_ptr(),
-        scratch.data_ptr(), n_layers, n, p, m, row_bytes // 16,
+        k_pools.data_ptr(), v_pools.data_ptr(), dev_rows.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), n_layers, n, p, m,
+        n_hazard, row_vecs,
         torch.cuda.current_stream(k_pools.device).cuda_stream,
     )
     _build.check_launch("gc_compact", err)
     kv_launches += 1
+    kv_device_launches += 1 + (n_hazard > 0)

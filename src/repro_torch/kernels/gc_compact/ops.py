@@ -12,9 +12,9 @@ import torch
 from .kernel import (
     check_args,
     check_kv_args,
-    check_moves,
     compact_slots_cuda,
     gc_compact_cuda,
+    plan_moves,
 )
 from .ref import compact_slots_flat, compact_slots_ref, gc_compact_ref
 
@@ -48,13 +48,15 @@ def compact_slots(slot_lba, valid, src_block, src_slot, dst_block, dst_slot):
 def gc_compact_(k_pools, v_pools, moves) -> None:
     """In place: apply the host move list [M, 4] int32 (src_block,
     src_slot, dst_block, dst_slot; src_block < 0 = no-op) to every layer
-    of the K and V pools [L, N, P, Hkv, D] (see
-    ``kernels/csrc/gc_compact.cu``)."""
+    of the K and V pools [L, N, P, Hkv, D], every read before any write
+    (see ``kernels/csrc/gc_compact.cu``). The list is checked on the host
+    (``kernel.plan_moves``): a row outside the pool, or two rows with one
+    destination, raise."""
     if k_pools.is_cuda:
         gc_compact_cuda(k_pools, v_pools, moves)  # checks its args
     elif k_pools.device.type == "cpu":
         check_kv_args(k_pools, v_pools)
-        check_moves(moves, *k_pools.shape[1:3])
+        plan_moves(moves, *k_pools.shape[1:3])
         gc_compact_ref(k_pools, v_pools, moves)
     else:
         raise ValueError(f"gc_compact: no kernel for {k_pools.device}")

@@ -15,7 +15,7 @@ and destination slots may interleave. Rows the kernel skips (``src_block <
 takes one layer and is run under ``vmap``): one move list applied in place
 to every layer of the K and V pools ``[L, N, P, Hkv, D]``, all reads before
 any write. That move list comes from the host and is checked there
-(``kernel.check_moves``), so no row is skipped silently.
+(``kernel.plan_moves``), so no row is skipped silently.
 """
 
 from __future__ import annotations

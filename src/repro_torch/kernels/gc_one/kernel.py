@@ -1,0 +1,150 @@
+"""ctypes binding of the GC kernel (``kernels/csrc/gc_one.cu``), which
+chooses a GC's group and victim, decides it and, under the static
+detector, drains the victim in one launch: the redesign, for the
+simulator's paths, of the Pallas TPU kernel ``compact_slots`` in
+``repro/kernels/gc_compact/kernel.py`` together with the JAX package's
+``_gc_one`` around it."""
+
+from __future__ import annotations
+
+import ctypes
+import types
+
+import torch
+
+from repro_torch.kernels import _build
+
+# gc_one_cuda launches since the count was last set to 0 (one per call)
+launches = 0
+
+# how the group is chosen (Mode in gc_one.cu): the given g, enabled when it
+# needs a block it is not entitled to or the pool is at reserve; the group
+# of the CLOSED block with the fewest live pages (the emergency valve); the
+# group of the largest block surplus (a movement operation)
+MODES = ("gc", "valve", "movement")
+TD_MODES = ("static", "fdp", "bloom")
+MAX_GROUPS = 64   # the kernel's per-group loops
+MAX_PAGES = 1024  # pages per block: one thread a slot
+
+# SimState fields the kernel reads or writes, each with a leading drive axis
+STATE_FIELDS = (
+    "page_map", "slot_lba", "valid", "live", "fill", "stamp", "state",
+    "group_of", "erase_count", "trim_dead", "erase_total", "erase_sq_total",
+    "active_blk", "grp_phys", "grp_alloc", "grp_active", "grp_surplus",
+    "grp_size", "grp_live", "free_blocks", "mapped_pages", "n_mig",
+    "n_dropped", "n_erase", "clock",
+)
+# the fields among them that are one counter a drive ([D])
+COUNTERS = ("erase_total", "erase_sq_total", "free_blocks", "mapped_pages",
+            "n_mig", "n_dropped", "n_erase", "clock")
+# the kernel's pointer struct (Ptrs in gc_one.cu), in order
+ORDER = STATE_FIELDS + ("gc_w", "g", "out")
+
+
+def check_state(state) -> None:
+    """Raise unless ``state`` maps :data:`STATE_FIELDS` to the SimState
+    fields' tensors with a leading drive axis (D >= 1), each in its dtype
+    and shape, contiguous, on one device, with 1-64 groups and 1-1,024
+    pages a block."""
+    missing = [k for k in STATE_FIELDS if k not in state]
+    if missing:
+        raise ValueError(f"gc_one: state lacks {missing}")
+    if state["slot_lba"].dim() != 3 or state["slot_lba"].shape[0] < 1:
+        raise ValueError("gc_one: wants slot_lba [D, K, B], got "
+                         f"{tuple(state['slot_lba'].shape)}")
+    d, k, b = state["slot_lba"].shape
+    n_groups = state["grp_size"].shape[-1]
+    if not 1 <= n_groups <= MAX_GROUPS or not 1 <= b <= MAX_PAGES:
+        raise ValueError(f"gc_one: {n_groups} groups and {b} pages a block; "
+                         f"the kernel takes 1-{MAX_GROUPS} and 1-{MAX_PAGES}")
+    i32 = torch.int32
+    shapes = {
+        "page_map": (i32, (d, state["page_map"].shape[-1])),
+        "slot_lba": (i32, (d, k, b)), "valid": (torch.bool, (d, k, b)),
+        "state": (torch.int8, (d, k)),
+        **{f: (i32, (d, k)) for f in ("live", "fill", "stamp", "group_of",
+                                       "erase_count", "trim_dead")},
+        **{f: (i32, (d, n_groups)) for f in (
+            "active_blk", "grp_phys", "grp_alloc", "grp_surplus", "grp_size",
+            "grp_live")},
+        "grp_active": (torch.bool, (d, n_groups)),
+        **{f: (i32, (d,)) for f in COUNTERS},
+    }
+    _build.check_tensors("gc_one", **{
+        name: (state[name], dtype, shape)
+        for name, (dtype, shape) in shapes.items()})
+
+
+def check_call(state, gc_w, g, out, *, mode, td_mode) -> None:
+    """Raise unless the rest of a call fits the checked ``state``: gc_w
+    [D, 4] float32 (α, β, γ, τ); g [D] int64 in mode "gc", None in the
+    others; out [D, 3] int64; contiguous, on the state's device."""
+    if mode not in MODES:
+        raise ValueError(f"gc_one: mode {mode!r} not in {MODES}")
+    if td_mode not in TD_MODES:
+        raise ValueError(f"gc_one: td_mode {td_mode!r} not in {TD_MODES}")
+    if (g is None) != (mode != "gc"):
+        raise ValueError(f"gc_one: mode {mode!r} takes "
+                         + ("g [D]" if mode == "gc" else "no g"))
+    d = state["slot_lba"].shape[0]
+    specs = {"page_map": (state["page_map"], torch.int32,
+                          state["page_map"].shape),
+             "gc_w": (gc_w, torch.float32, (d, 4)),
+             "out": (out, torch.int64, (d, 3))}
+    if g is not None:
+        specs["g"] = (g, torch.int64, (d,))
+    _build.check_tensors("gc_one", **specs)
+
+
+def check_args(state, gc_w, g, out, *, mode, td_mode,
+               gc_reserve_blocks) -> None:
+    """Raise unless the arguments are what the kernel takes
+    (:func:`check_state`, :func:`check_call`; gc_reserve_blocks: any
+    int)."""
+    del gc_reserve_blocks
+    check_state(state)
+    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode)
+
+
+# the last read-only state mapping launched on, and its packed pointers
+_packed = (None, None)
+
+
+def _state_pointers(state) -> list:
+    """The data pointers of ``state``'s :data:`STATE_FIELDS`, checked. A
+    read-only mapping (``types.MappingProxyType``, as
+    ``SimState.drive_axis`` is: its fields are never rebound) holds the
+    same tensors for its life, so it is checked and packed once."""
+    global _packed
+    if _packed[0] is state:
+        return _packed[1]
+    check_state(state)
+    ptrs = [state[k].data_ptr() for k in STATE_FIELDS]
+    if isinstance(state, types.MappingProxyType):
+        _packed = (state, ptrs)
+    return ptrs
+
+
+def gc_one_cuda(state, gc_w, g, out, *, mode, td_mode,
+                gc_reserve_blocks) -> None:
+    """Launch the kernel on the current stream: one GC per drive, decided
+    (and under the static detector drained) on the card, in place; writes
+    (victim, g, do) into ``out``."""
+    global launches
+    state_ptrs = _state_pointers(state)
+    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode)
+    if not out.is_cuda:
+        raise ValueError(f"gc_one_cuda: tensors on {out.device}")
+    fn = _build.launcher("gc_one")
+    ptrs = (ctypes.c_void_p * len(ORDER))(
+        *state_ptrs, gc_w.data_ptr(), None if g is None else g.data_ptr(),
+        out.data_ptr())
+    n_drives, k, b = state["slot_lba"].shape
+    dims = (ctypes.c_longlong * 5)(
+        state["page_map"].shape[-1], k, b, state["grp_size"].shape[-1],
+        gc_reserve_blocks)
+    err = fn(ptrs, len(ORDER), dims, len(dims), n_drives, MODES.index(mode),
+             int(td_mode == "static"),
+             torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check_launch("gc_one", err)
+    launches += 1

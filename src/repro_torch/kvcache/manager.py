@@ -254,10 +254,13 @@ class WolfKVManager:
         Page-wise with progressive reclamation: a source page whose survivors
         have all been scheduled is freed BEFORE the next destination block is
         claimed, so compaction needs only ~2 spare blocks regardless of
-        sequence length. Device-safety: a reclaimed block can only become the
-        destination of moves strictly LATER than every move reading it
-        (dst ci' ≤ src ci and survivors are processed in ci order), so the
-        gc_compact kernel's in-order grid has no read-after-write hazard.
+        sequence length. Device-safety: the move list's destinations are
+        distinct (each survivor gets its own new slot), and a reclaimed
+        block can only become the destination of moves strictly LATER than
+        every move reading it (dst ci' ≤ src ci and survivors are processed
+        in ci order). gc_compact applies a list with every read before any
+        write: its host plan refuses two moves onto one slot and stages
+        first the sources that a move's destination overwrites.
         """
         seq = self.seqs[sid]
         g = seq.group

@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.gc_compact import kernel as gc_kernel
+from repro_torch.kernels.gc_one import kernel as gc_one_kernel
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 
 _spec = importlib.util.spec_from_file_location(
@@ -82,6 +84,24 @@ def test_cuda_wrappers_refuse_cpu_tensors(d):
     kv = torch.zeros((1, 16, 2, d))
     with pytest.raises(ValueError, match="tensors on cpu"):
         flash_kernel.flash_attention_cuda(qf, kv, kv)
+    pools = torch.zeros((2, 4, 8, 2, d))
+    with pytest.raises(ValueError, match="tensors on cpu"):
+        gc_kernel.gc_compact_cuda(pools, pools, torch.tensor(
+            [[0, 1, 2, 3]], dtype=torch.int32))
+
+
+def test_gc_one_is_built_and_bound():
+    """The GC kernel's source is one of the build's, its launcher takes the
+    packed pointers and sizes, and its pointer order is the source's."""
+    symbol, argtypes = _build.SIGNATURES["gc_one"]
+    assert symbol == "gc_one_launch" and len(argtypes) == 8
+    text = (_build.CSRC / "gc_one.cu").read_text()
+    struct = text[text.index("struct Ptrs {"):text.index("};", text.index(
+        "struct Ptrs {"))]
+    fields = [line.split("*")[1].split(";")[0].strip()
+              for line in struct.splitlines()[1:] if "*" in line]
+    assert tuple(fields) == gc_one_kernel.ORDER
+    assert gc_one_kernel.MODES == ("gc", "valve", "movement")
 
 
 @pytest.mark.parametrize("mangled,short", [
@@ -93,6 +113,10 @@ def test_cuda_wrappers_refuse_cpu_tensors(d):
      "flash_fp32_kernel<64>"),
     ("_ZN45_GLOBAL__N__b905c18f_12_write_run_cu_f38e313b16write_run_kernelILi"
      "2ELb1ELb0EEEvNS_4PtrsENS_4DimsE", "write_run_kernel<2, 1, 0>"),
+    ("_ZN41_GLOBAL__N__7ffd6287_9_gc_one_cu_f9d0c98213gc_one_kernelILi1ELb1EEE"
+     "vNS_4PtrsENS_4DimsE", "gc_one_kernel<1, 1>"),
+    ("_ZN46_GLOBAL__N__cc20e2c0_13_gc_compact_cu_afd97ce317gc_compact_kernelIL"
+     "b0EEEvP5uint4S2_PKiS2_iiiiii", "gc_compact_kernel<0>"),
 ])
 def test_short_name_reads_template_arguments(mangled, short):
     assert chip_smoke.short_name(mangled) == short

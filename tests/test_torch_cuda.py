@@ -9,11 +9,12 @@ nothing of JAX, so it also runs on a GPU host without JAX:
 
 Simulator comparisons are exact (integer pools and integer state;
 ``grp_p`` too, since card and CPU run the same float32 operations in the
-same order), and so are the KV compaction's. The attention kernels sum in
-another order than their plain versions: within 1e-5 in fp32 and 2e-2 in
-bf16 (p is rounded to bf16 before P·V, as in the Pallas kernels), and in
-bf16 each output row also within 2e-2 of its own largest value, since
-attention outputs can lie far below the absolute bound.
+same order; the GC kernel's float32 victim score is rounded op by op as
+PyTorch rounds it), and so are the KV compaction's. The attention kernels
+sum in another order than their plain versions: within 1e-5 in fp32 and
+2e-2 in bf16 (p is rounded to bf16 before P·V, as in the Pallas kernels),
+and in bf16 each output row also within 2e-2 of its own largest value,
+since attention outputs can lie far below the absolute bound.
 """
 
 import dataclasses
@@ -29,6 +30,8 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.gc_compact import kernel as gc_kernel
 from repro_torch.kernels.gc_compact import ops as gc_ops
+from repro_torch.kernels.gc_one import kernel as gc_one_kernel
+from repro_torch.kernels.gc_one import ref as gc_one_ref
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.kernels.write_path import kernel as wp_kernel
@@ -160,13 +163,16 @@ def test_card_op_stream_run_matches_cpu_run(cuda):
 
 @pytest.mark.cuda
 def test_card_run_matches_cpu_run(cuda):
+    """wolf on two_modal: every GC is one gc_one launch that drains on the
+    card (none through compact_slots), and the run equals the CPU run."""
     geom = Geometry(4, 32, 8)
     phases = [workloads.two_modal(geom.lba_pages, 3000)]
-    n = (wr_kernel.launches, gc_kernel.launches, wp_kernel.launches)
+    n = (wr_kernel.launches, gc_kernel.launches, wp_kernel.launches,
+         gc_one_kernel.launches)
     card = managers.simulate(geom, managers.wolf(), phases, seed=3,
                              device="cuda")
-    assert wr_kernel.launches > n[0] and gc_kernel.launches > n[1]
-    assert wp_kernel.launches == n[2]
+    assert wr_kernel.launches > n[0] and gc_one_kernel.launches > n[3]
+    assert (gc_kernel.launches, wp_kernel.launches) == n[1:3]
     host = managers.simulate(geom, managers.wolf(), phases, seed=3,
                              device="cpu")
     np.testing.assert_array_equal(card.app, host.app)
@@ -259,26 +265,92 @@ def test_write_run_kernel_matches_plain_version(cuda, td_mode, with_trim, d):
             assert torch.equal(got[group][k].cpu(), v), k
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("mode", ["gc", "valve", "movement"])
+@pytest.mark.parametrize("td_mode", ["static", "fdp", "bloom"])
+def test_gc_one_kernel_matches_plain_version(cuda, td_mode, mode, d):
+    """From a Table-2 state reached on the card, d drives' GCs through the
+    kernel and, on copies of the same inputs on the CPU, through
+    gc_one_ref: out and every state field exact. In mode "gc" every drive
+    but the last (of several) has its group's open block full and over
+    budget, and in mode "movement" its group two blocks over its
+    allocation, so GCs are decided (and, static, drained) and refused."""
+    ctx, st, policy, _ = _table2_drive(td_mode, td_mode == "bloom")
+    b = TABLE2.pages_per_block
+    state = {k: (v.view(1) if k in gc_one_kernel.COUNTERS else v[None])
+             for k, v in ((k, getattr(st, k).cpu())
+                          for k in gc_one_kernel.STATE_FIELDS)}
+    state = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
+             for k, v in state.items()}
+    g = torch.arange(d) % ctx.n_groups
+    for i in range(d - (d > 1)):
+        if mode == "gc":
+            ab = int(state["active_blk"][i, g[i]])
+            state["fill"][i, ab] = b
+            state["grp_alloc"][i, g[i]] = 0
+        elif mode == "movement":
+            state["grp_alloc"][i, g[i]] = state["grp_phys"][i, g[i]] - 2
+            state["grp_surplus"][i] = torch.where(
+                state["grp_active"][i],
+                state["grp_phys"][i] - state["grp_alloc"][i], -(2**31 - 1))
+    gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"].cpu()
+    args = dict(state=state, gc_w=gc_w.repeat(d, 1),
+                g=g if mode == "gc" else None,
+                out=torch.full((d, 3), -9, dtype=torch.int64))
+    kw = dict(mode=mode, td_mode=td_mode,
+              gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
+
+    def on(device):
+        return {k: None if v is None else (
+            {kk: vv.to(device, copy=True) for kk, vv in v.items()}
+            if isinstance(v, dict) else v.to(device, copy=True))
+            for k, v in args.items()}
+
+    got, want = on(cuda), on("cpu")
+    n_launch = gc_one_kernel.launches
+    gc_one_kernel.gc_one_cuda(**got, **kw)
+    torch.cuda.synchronize()
+    assert gc_one_kernel.launches == n_launch + 1
+    gc_one_ref.gc_one_ref(**want, **kw)
+    assert want["out"][:, 2].any()
+    assert torch.equal(got["out"].cpu(), want["out"])
+    for k, v in want["state"].items():
+        assert torch.equal(got["state"][k].cpu(), v), k
+    if td_mode == "static":
+        drained = want["state"]["n_erase"] - args["state"]["n_erase"]
+        assert torch.equal(drained, want["out"][:, 2].int())
+    else:  # the demoting drain is the host's
+        for k, v in want["state"].items():
+            assert torch.equal(v, args["state"][k]), k
+
+
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [True, False],
+                         ids=["overlapping", "disjoint"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gc_compact_kernel_matches_plain_version(cuda, dtype):
-    """Overlapping source and destination sets, no-op rows, two layers."""
+def test_gc_compact_kernel_matches_plain_version(cuda, dtype, overlap):
+    """No-op rows, two layers; source and destination sets overlapping
+    (the hazard rows staged: two device launches) or disjoint (one)."""
     rng = np.random.default_rng(5)
     n, p, h, d, m = 12, 8, 2, 64, 30
     pools = [torch.from_numpy(rng.normal(size=(2, n, p, h, d)).astype(
         np.float32)).to(cuda, dtype) for _ in range(2)]
-    src = rng.choice(n * p, m, replace=False)
-    dst = rng.choice(n * p, m, replace=False)
+    slots = rng.permutation(n * p)
+    dst = slots[:m]
+    src = rng.choice(slots if overlap else slots[m:], m, replace=False)
     moves = np.stack([src // p, src % p, dst // p, dst % p], 1)
     moves[rng.random(m) < 0.2, 0] = -1
     moves = torch.from_numpy(moves.astype(np.int32))
+    assert (gc_kernel.plan_moves(moves, n, p)[1] > 0) == overlap
     got, want = [t.clone() for t in pools], [t.clone() for t in pools]
-    n_launch = gc_kernel.kv_launches
+    n_launch = (gc_kernel.kv_launches, gc_kernel.kv_device_launches)
     gc_kernel.gc_compact_cuda(*got, moves)
-    assert gc_kernel.kv_launches == n_launch + 1
+    assert gc_kernel.kv_launches == n_launch[0] + 1
+    assert gc_kernel.kv_device_launches == n_launch[1] + 1 + overlap
     gc_ops.gc_compact_ref(*want, moves)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -398,9 +470,11 @@ def test_flash_attention_kernel_matches_plain_version(
 def test_empty_calls_launch_and_count_nothing(cuda):
     """A wrapper counts a launch only where it launches its kernel."""
     pools = [torch.zeros((2, 4, 8, 2, 32), device=cuda) for _ in range(2)]
-    n_launch = gc_kernel.kv_launches
-    gc_kernel.gc_compact_cuda(*pools, torch.zeros((0, 4), dtype=torch.int32))
-    assert gc_kernel.kv_launches == n_launch
+    n_launch = (gc_kernel.kv_launches, gc_kernel.kv_device_launches)
+    for moves in (torch.zeros((0, 4), dtype=torch.int32),
+                  torch.tensor([[-1, 0, 1, 1]], dtype=torch.int32)):
+        gc_kernel.gc_compact_cuda(*pools, moves)
+    assert (gc_kernel.kv_launches, gc_kernel.kv_device_launches) == n_launch
     q = torch.zeros((0, 4, 32), device=cuda)
     kp = torch.zeros((4, 8, 2, 32), device=cuda)
     rest = [torch.zeros(s, dtype=t, device=cuda) for s, t in (
