@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py [--seed N] [--writes N] [--churn-events N]
                           [--small-writes N] [--iters N] [--profile-writes N]
-                          [--run-warm N]
+                          [--run-warm N] [--fleet-drives D,D,...]
+                          [--fleet-window N] [--fleet-mix-events N]
+                          [--phases P,P,...]
 
 Phases, one JSON line each; any failed check exits non-zero:
 
@@ -33,7 +35,9 @@ Phases, one JSON line each; any failed check exits non-zero:
               heavy write's own GC with its open block full and over budget,
               the emergency valve, a movement operation), each launch from a
               fresh copy of the state and timed alone, queued and unqueued,
-              exact against gc_one_ref; gc_compact on move lists whose
+              exact against gc_one_ref, and at D = 64 with every odd
+              drive disabled (a fleet round's mask); gc_compact on move
+              lists whose
               sources overlap the destinations (two launches) and on
               disjoint ones (one);
   equiv_small six preset/workload pairs at Geometry(4, 32, 8) on the card
@@ -56,6 +60,20 @@ Phases, one JSON line each; any failed check exits non-zero:
               every kernel must have been launched, compact_slots once a
               (demoting) drain, and at the default depth and seed the host
               syncs must be 5,367;
+  fleet       D Table-2 drives in lock-step (wolf on two_modal, seeds
+              0..D-1, numpy streams, --writes each) for each D of
+              --fleet-drives through fleet.simulate_fleet, counts set to 0
+              just before each: drives x writes/s, rounds (write_run
+              launches), interval batches (must be writes // h), host syncs,
+              launches, WA, and a profile window of --fleet-window more
+              writes a drive on the final states (the idle share); D = 1
+              must equal full_width's run, drives 0, 31 and 63 of D = 64
+              their single-drive card runs; the device sampler at D = 64
+              (every drive's invariants, mean WA within 2% of the numpy
+              fleet's); a mixed fleet of 8 drives of every sub-batch kind
+              (static, a two-phase drive, fdp, single_group, bloom with
+              §5.2, TRIM op streams) at --fleet-mix-events on the card and
+              the CPU, identical;
   serve_full_width  the Wolf-KV serving engine on internlm2-1.8b at its
               full published width in bf16 (random weights from --seed): 48
               requests of 256 prompt tokens and 256 new ones, policies
@@ -651,7 +669,7 @@ def run_inputs(torch, args, case, d):
         start=drives(torch.tensor([[0, int(st.n_app)]], device="cuda")),
         state={k: drives(getattr(st, k).view(1) if k in COUNTERS
                          else getattr(st, k)[None]) for k in STATE_FIELDS},
-        policy={k: drives(policy[k][None]) for k in (
+        policy={k: drives(policy[k]) for k in (
             "page_rate", "fdp_rate", "page_group0") if k in policy},
     )
     mode = dict(h=ctx.h, trace_every=1, td_mode=mcfg.td_mode,
@@ -826,7 +844,7 @@ def gc_one_inputs(torch, args, mode, d):
         state["fill"][rows, ab] = b
         state["grp_alloc"][rows, g] = 0
     gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
-    inputs = dict(state=state, gc_w=drives(gc_w[None]),
+    inputs = dict(state=state, gc_w=drives(gc_w),
                   g=g if mode == "gc" else None)
     kw = dict(mode=mode, td_mode=ctx.mcfg.td_mode,
               gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
@@ -938,7 +956,77 @@ def gc_one_kernels(torch, args, card):
             results[("gc_one", mode, d)] = line
             del inputs, got, want
             torch.cuda.empty_cache()
+    results[("gc_one", "gc_masked", 64)] = gc_one_masked(torch, args, card)
     return results
+
+
+def gc_one_masked(torch, args, card):
+    """gc_one at D = 64 in mode "gc" with every odd drive disabled (a
+    fleet round's mask): exact against gc_one_ref, the disabled drives
+    untouched with out (-1, -1, 0); its time queued and unqueued."""
+    from repro_torch.kernels.gc_one import kernel as gc_one_kernel
+    from repro_torch.kernels.gc_one.ref import gc_one_ref
+
+    d = 64
+    inputs, kw = gc_one_inputs(torch, args, "gc", d)
+    inputs["enable"] = torch.arange(d, device="cuda") % 2 == 0
+    got, want = gc_one_fresh(torch, inputs), gc_one_fresh(torch, inputs)
+    gc_one_kernel.gc_one_cuda(**got, **kw)
+    gc_one_ref(**want, **kw)
+    torch.cuda.synchronize()
+    bad = ["out"] if not torch.equal(got["out"], want["out"]) else []
+    bad += [k for k, v in want["state"].items()
+            if not torch.equal(got["state"][k], v)]
+    bad += [k for k, v in inputs["state"].items()
+            if not torch.equal(got["state"][k][1::2], v[1::2])]
+    check(not bad, f"gc_one masked D={d}: kernel != plain in {bad}")
+    check((got["out"][1::2].cpu() == torch.tensor([-1, -1, 0])).all(),
+          "gc_one masked: a disabled drive's out is not (-1, -1, 0)")
+    decided = int(got["out"][:, 2].sum())
+    check(decided == d // 2, f"gc_one masked: {decided} of {d // 2} decided")
+    times = {"kernel_ms": [], "kernel_ms_queued": [], "plain_ms": []}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(max(3, args.iters // 50)):
+        for key in ("kernel_ms", "kernel_ms_queued"):
+            run = gc_one_fresh(torch, inputs)
+            torch.cuda.synchronize()
+            if key == "kernel_ms_queued":
+                torch.cuda._sleep(1_000_000)
+            start.record()
+            gc_one_kernel.gc_one_cuda(**run, **kw)
+            end.record()
+            end.synchronize()
+            times[key].append(start.elapsed_time(end))
+        if i < 2:
+            run = gc_one_fresh(torch, inputs)
+            torch.cuda.synchronize()
+            start.record()
+            gc_one_ref(**run, **kw)
+            end.record()
+            end.synchronize()
+            times["plain_ms"].append(start.elapsed_time(end))
+    on = inputs["enable"]
+    # the enabled drives' bytes, as gc_one_bytes counts them, and one
+    # enable byte and one out row for each disabled drive
+    half = {k: v[on] for k, v in inputs["state"].items()}
+    nbytes = gc_one_bytes(half, {k: v[on] for k, v in got["state"].items()},
+                          got["out"][on], {"gc_w": inputs["gc_w"][on]},
+                          "gc") + d + (d // 2) * 24
+    line = {
+        "phase": "kernels", "name": "gc_one", "case": "full_width",
+        "mode": "gc", "drives": d, "enabled": d // 2,
+        "td_mode": kw["td_mode"], "decided": decided,
+        "equal": True, "max_abs_err": 0,
+        **{k: float(np.median(v)) for k, v in times.items()},
+        "timed_launches": len(times["kernel_ms"]), "bytes": nbytes,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "card": card,
+    }
+    emit(line)
+    del inputs, got, want
+    torch.cuda.empty_cache()
+    return line
 
 
 # -- phases -----------------------------------------------------------------
@@ -1131,7 +1219,7 @@ def zero_counts() -> None:
     gc_kernel.launches = gc_kernel.kv_launches = 0
     gc_kernel.kv_device_launches = gc_one_kernel.launches = 0
     paged_kernel.launches = flash_kernel.launches = 0
-    simulator.host_syncs = 0
+    simulator.host_syncs = simulator.rounds = simulator.interval_batches = 0
     simulator.run_stops.update(dict.fromkeys(simulator.run_stops, 0))
 
 
@@ -1155,6 +1243,9 @@ def read_launches() -> dict:
         "paged_attention": paged_kernel.launches,
         "flash_attention": flash_kernel.launches,
     }
+
+
+_RUNS = {}  # path -> its card RunResult, for the fleet phase
 
 
 def phase_full_width(torch, args, card):
@@ -1221,6 +1312,7 @@ def phase_full_width(torch, args, card):
         "run_stops": stops, "launches": launches, "card": card,
     }
     emit(line)
+    _RUNS["full_width"] = card_run
     return line
 
 
@@ -1305,6 +1397,215 @@ def phase_full_width_churn(torch, args, card):
     }
     emit(line)
     return line
+
+
+# the mixed fleet: every sub-batch kind of the fleet, card against CPU
+FLEET_MIX_GEOM = dict(n_luns=8, blocks_per_lun=64, pages_per_block=64,
+                      lba_pba=0.70)
+
+
+def fleet_headline_specs(args, d):
+    """D Table-2 drives under wolf on two_modal(0.9, 0.5), seeds 0..D-1."""
+    from repro_torch.core import fleet, managers, workloads
+    from repro_torch.core.ssd import Geometry
+
+    phase = workloads.two_modal(Geometry(**TABLE2).lba_pages, args.writes,
+                                p_hot=0.9, frac_hot=0.5)
+    return [fleet.DriveSpec(managers.wolf(), (phase,), seed=args.seed + i)
+            for i in range(d)]
+
+
+def fleet_window(torch, args, res, d):
+    """A profile window of the fleet's steady state: --fleet-window more
+    writes a drive on the headline fleet's final states (after --writes),
+    through the simulator's batched scan: the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import managers, simulator, workloads
+    from repro_torch.core.ssd import Geometry
+
+    geom, n = Geometry(**TABLE2), args.fleet_window
+    mcfg = managers.wolf()
+    phase = workloads.two_modal(geom.lba_pages, n, p_hot=0.9, frac_hot=0.5)
+    ctx = simulator.SimContext(geom, mcfg, len(phase.sizes))
+    assumed_p, fdp_rate = managers.fdp_assumed_arrays(phase, mcfg.max_groups)
+    one = simulator.policy_from_config(ctx, "cuda", assumed_p=assumed_p,
+                                       fdp_rate=fdp_rate,
+                                       page_rate=phase.page_rate())
+    policy = simulator.stack_policies([one] * d)
+    lbas = torch.as_tensor(np.stack([
+        phase.sample(np.random.default_rng([args.seed, 2, i]))
+        for i in range(d)]).astype(np.int64), device="cuda")
+    st = res.states
+    zero_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        simulator.scan_writes(ctx, st, lbas, [args.writes] * d, policy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stats = kernel_stats(torch, prof, wall)
+    return {"writes_per_drive": n, **stats,
+            "drive_writes_per_s": d * n / wall,
+            "rounds": simulator.rounds,
+            "interval_batches": simulator.interval_batches,
+            "host_syncs": simulator.host_syncs,
+            "kernels_per_round": stats["launches"] / simulator.rounds,
+            "host_syncs_per_round": simulator.host_syncs / simulator.rounds}
+
+
+def phase_fleet(torch, args, card):
+    """The fleet on the card: the headline runs (D Table-2 wolf drives in
+    lock-step, numpy streams) for each D of --fleet-drives with their
+    rates, rounds, interval batches, host syncs, launches and a profile
+    window; D = 1 equal to full_width, three drives of D = 64 equal to
+    their single-drive card runs; the device sampler at D = 64; and a
+    mixed fleet of every sub-batch kind equal to its CPU run."""
+    from repro_torch.core import fleet, managers, simulator, workloads
+    from repro_torch.core.ssd import Geometry, assert_invariants
+
+    geom = Geometry(**TABLE2)
+    lines = {}
+    for d in args.fleet_drives:
+        specs = fleet_headline_specs(args, d)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fleet.simulate_fleet(geom, specs, sampler="numpy")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        (meta,) = res.exec_meta
+        check(launches["write_run"] == meta["rounds"] == simulator.rounds,
+              f"fleet D={d}: {launches['write_run']} write_run launches for "
+              f"{meta['rounds']} rounds")
+        check(launches["gc_one"] > 0, f"fleet D={d}: no gc_one launch")
+        check(launches["apply_write"] == launches["compact_slots"] == 0,
+              f"fleet D={d}: a per-row kernel was launched")
+        check(meta["interval_batches"] == args.writes // meta["h"],
+              f"fleet D={d}: {meta['interval_batches']} interval batches, "
+              f"not {args.writes // meta['h']}")
+        for i in sorted({0, d // 2, d - 1}):
+            assert_invariants(res.state(i), f"fleet D={d} drive {i}")
+        wa = res.wa_total
+        check(np.isfinite(wa).all() and (wa >= 1.0).all(),
+              f"fleet D={d}: WA {wa.min()}..{wa.max()}")
+        equal = {}
+        if d == 1 and "full_width" in _RUNS:
+            bad = same_run(torch, res.result(0), _RUNS["full_width"])
+            check(not bad, f"fleet D=1 != full_width in {bad}")
+            equal["full_width"] = True
+        if d == 64:
+            for i in (0, 31, 63):
+                alone = managers.simulate(geom, specs[i].mcfg,
+                                          list(specs[i].phases),
+                                          seed=specs[i].seed, device="cuda")
+                bad = same_run(torch, res.result(i), alone)
+                check(not bad, f"fleet D=64 drive {i} != its run alone in "
+                      f"{bad}")
+                equal[f"drive_{i}_alone"] = True
+        line = {
+            "phase": "fleet", "case": "headline", "manager": "wolf",
+            "workload": "two_modal(p_hot=0.9, frac_hot=0.5)",
+            "geometry": [TABLE2["n_luns"], TABLE2["blocks_per_lun"],
+                         TABLE2["pages_per_block"]],
+            "drives": d, "writes_per_drive": args.writes,
+            "sampler": "numpy", "seconds": seconds,
+            "drive_writes_per_s": d * args.writes / seconds,
+            "rounds": meta["rounds"],
+            "interval_batches": meta["interval_batches"],
+            "host_syncs": meta["host_syncs"], "h": meta["h"],
+            "launches": launches,
+            "heavy_writes": sum(simulator.run_stops.values()),
+            "wa_mean": float(wa.mean()), "wa_min": float(wa.min()),
+            "wa_max": float(wa.max()), "equal": equal,
+            "window": fleet_window(torch, args, res, d),
+            "card": card,
+        }
+        emit(line)
+        lines[d] = line
+        if d == 64:
+            numpy_wa = float(wa.mean())
+        del res
+        torch.cuda.empty_cache()
+
+    if 64 in args.fleet_drives:  # the device sampler at D = 64
+        specs = fleet_headline_specs(args, 64)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fleet.simulate_fleet(geom, specs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for i in range(64):
+            assert_invariants(res.state(i), f"fleet device sampler drive {i}")
+        wa = float(res.wa_total.mean())
+        check(abs(wa - numpy_wa) <= 0.02 * numpy_wa,
+              f"fleet device sampler: mean WA {wa}, numpy's {numpy_wa}")
+        (meta,) = res.exec_meta
+        emit({"phase": "fleet", "case": "device_sampler", "drives": 64,
+              "writes_per_drive": args.writes, "seconds": seconds,
+              "drive_writes_per_s": 64 * args.writes / seconds,
+              "rounds": meta["rounds"],
+              "interval_batches": meta["interval_batches"],
+              "host_syncs": meta["host_syncs"], "wa_mean": wa,
+              "wa_mean_numpy": numpy_wa, "invariants": True, "card": card})
+        del res
+        torch.cuda.empty_cache()
+
+    # a mixed fleet of 8: static (two seeds), a two-phase static drive,
+    # fdp, single_group, bloom with §5.2, and two TRIM op streams
+    mgeom = Geometry(**FLEET_MIX_GEOM)
+    lba, n = mgeom.lba_pages, args.fleet_mix_events
+    specs = [
+        fleet.DriveSpec(managers.wolf(), (workloads.two_modal(lba, n),), 1),
+        fleet.DriveSpec(managers.wolf_lru(), (workloads.tpcc_like(lba, n),),
+                        2),
+        fleet.DriveSpec(managers.wolf(), tuple(workloads.swap_phases(
+            lba, n // 2)), 3),
+        fleet.DriveSpec(managers.fdp(), tuple(workloads.swap_phases(
+            lba, n // 2)), 4),
+        fleet.DriveSpec(managers.single_group(),
+                        (workloads.uniform(lba, n),), 5),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_like(lba, n),), 6),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_churn(lba, n),), 7),
+        fleet.DriveSpec(managers.wolf_trim_aware(), (workloads.trimmed(
+            workloads.two_modal(lba, n), 0.2),), 8),
+    ]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_res = fleet.simulate_fleet(mgeom, specs, sampler="numpy")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    for name in ("write_run", "gc_one", "compact_slots"):
+        check(launches[name] > 0, f"fleet mixed: no {name} launch")
+    t0 = time.perf_counter()
+    cpu_res = fleet.simulate_fleet(mgeom, specs, sampler="numpy",
+                                   device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    check(card_res.exec_meta == cpu_res.exec_meta,
+          f"fleet mixed: {card_res.exec_meta} on the card, "
+          f"{cpu_res.exec_meta} on the CPU")
+    for i in range(len(specs)):
+        bad = same_run(torch, card_res.result(i), cpu_res.result(i))
+        check(not bad, f"fleet mixed drive {i}: cuda != cpu in {bad}")
+        assert_invariants(card_res.state(i), f"fleet mixed drive {i}")
+    emit({"phase": "fleet", "case": "mixed", "drives": len(specs),
+          "geometry": [mgeom.n_luns, mgeom.blocks_per_lun,
+                       mgeom.pages_per_block],
+          "events_per_drive": n, "sub_batches": card_res.exec_meta,
+          "identical_to_cpu": True, "seconds": seconds,
+          "cpu_seconds": cpu_seconds, "launches": launches,
+          "wa": card_res.wa_total.tolist(), "card": card})
+    # the main path's launches: the headline runs'
+    return {"launches": {k: sum(line["launches"][k] for line in
+                                lines.values())
+                         for k in next(iter(lines.values()))["launches"]},
+            "by_drives": lines}
 
 
 def serve_engine(torch, args, cfg, device, n_requests, max_new):
@@ -1640,6 +1941,13 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=1000)
     ap.add_argument("--profile-writes", type=int, default=1000)
     ap.add_argument("--run-warm", type=int, default=20_000)
+    ap.add_argument("--fleet-drives", type=lambda v: [
+        int(x) for x in v.split(",")], default=[1, 8, 64, 256])
+    ap.add_argument("--fleet-window", type=int, default=5000)
+    ap.add_argument("--fleet-mix-events", type=int, default=20_000)
+    ap.add_argument("--phases", type=lambda v: v.split(","), default=None,
+                    help="run only these phases (comma-separated; the "
+                    "kernel summary line needs kernels and every path)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1663,6 +1971,8 @@ def main() -> None:
     seconds = {}
 
     def timed(name, fn, *a):
+        if args.phases is not None and name not in args.phases:
+            return None
         t0 = time.perf_counter()
         out = fn(torch, args, *a)
         seconds[name] = time.perf_counter() - t0
@@ -1674,11 +1984,19 @@ def main() -> None:
         "full_width": timed("full_width", phase_full_width, card),
         "full_width_churn": timed("full_width_churn", phase_full_width_churn,
                                   card),
+        "fleet": timed("fleet", phase_fleet, card),
         "serve_full_width": timed("serve_full_width", phase_serve_full_width,
                                   card),
         "dense_vs_paged": timed("dense_vs_paged", phase_dense_vs_paged, card),
     }
     timed("profile", phase_profile, card)
+    if args.phases is not None:  # a partial run: no kernel summary
+        print(nvidia_smi(), flush=True)
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }, "phases": args.phases, "phase_s": seconds})
+        return
 
     replaces = {
         "write_run": "src/repro/kernels/write_path/kernel.py:66 (apply_write)"
@@ -1701,7 +2019,8 @@ def main() -> None:
     # lists overlapping; the dense check's flash in fp32)
     cases = {
         "write_run": [(c, d) for c in RUN_CASES for d in (1, 64)],
-        "gc_one": [(m, d) for m in GC_MODES for d in (1, 64)],
+        "gc_one": [(m, d) for m in GC_MODES for d in (1, 64)]
+        + [("gc_masked", 64)],
         **{n: [(d,) for d in (1, 64)]
            for n in ("apply_write", "apply_trim", "compact_slots")},
         "gc_compact": [(t, c) for t in ("bfloat16", "float32")

@@ -1,4 +1,5 @@
-"""Event-granularity SSD simulator, one drive, in PyTorch.
+"""Event-granularity SSD simulator in PyTorch, for one drive or a batch of
+drives run in lock-step.
 
 The counterpart of ``repro.core.simulator`` without faults
 (``check_supported`` names what waits). One step is one event of an op
@@ -23,31 +24,42 @@ A WRITE:
 A write whose group has room in its open block, with the pool above
 reserve, no movement surplus and no interval boundary, takes the fast path.
 :func:`scan_writes` lands runs of such writes, and every TRIM, on the
-device in one ``kernels/write_run`` launch a run: the kernel decides each
-write there and stops before the first heavy one (or one whose bloom insert
-would rotate the filter pair), which the host runs through
-:func:`_split_write` and :func:`_step_tail`; then the next run starts after
-it. A TRIM frees space and completes no write, so it never stops a run.
-Each GC of the heavy path (the group's own, the emergency valve's, a
-movement operation's) is one ``kernels/gc_one`` launch that chooses the
-group and the victim and decides on the device, as the JAX package's one
-``lax.cond`` does; under the static detector it drains the victim in the
-same launch. A drain that demotes (FDP or bloom detector) runs on the host
-after one read of the decision, and moves the victim's slot metadata with
-``kernels/gc_compact.compact_slots``.
+device: one ``kernels/write_run`` launch a round lands each drive's run
+and stops it before its first heavy write (or one whose bloom insert would
+rotate the filter pair); one read of the D stops decides the round, and
+the drives that stopped on a heavy write take it through
+:func:`_split_write` and :func:`_step_tail` together, masked per drive.
+A TRIM frees space and completes no write, so it never stops a run.
 
-State lives on one device and is updated in place. Every other decision
-that the JAX package expresses as ``lax.cond`` or ``lax.while_loop`` is
-Python control flow on one device→host read, counted in
-:data:`host_syncs`; everything between decisions is enqueued on the device
-without a read. The
+The heavy path has one implementation, over a batch: state fields with a
+leading drive axis (``SimState.batch`` makes one drive a batch of one),
+indices as ``[D]`` tensors, and a ``[D]`` bool mask ``on`` of the drives a
+call acts on (None: every drive, and then no select is made). Stores are
+gathers and scatters over the drive axis, and a drive outside the mask is
+left untouched. Each GC (the group's own, the emergency valve's, a
+movement operation's) is one ``kernels/gc_one`` launch for all the drives
+the mask enables: it chooses the group and the victim and decides on the
+device, as the JAX package's one ``lax.cond`` does; under the static
+detector it drains the victim in the same launch. A drain that demotes
+(FDP or bloom detector) runs on the host after one read of the D
+decisions, drive by drive on views of the batch, and moves the victim's
+slot metadata with ``kernels/gc_compact.compact_slots``.
+
+Every other decision that the JAX package expresses as ``lax.cond`` or
+``lax.while_loop`` is one read of a ``[D]`` vector, counted in
+:data:`host_syncs`, and acts on the drives where it holds; everything
+between decisions is enqueued on the device without a read. The
 WRITE/TRIM choice and the §5.1 interval boundary are host decisions with
 nothing to read: op codes come from numpy, and the write clock ``n_app``
-advances by one per WRITE. A run costs one read (where it stopped), and
-none when it holds no WRITE. Indices that stay on the device are 0-d integer
-tensors, read with :func:`_get` and written with :func:`_set` /
-:func:`_add`, so no read is a view that a later write would change and no
-index silently wraps.
+advances by one per WRITE. A round costs one read (where each drive
+stopped), and none when no drive has a WRITE left.
+
+Interval alignment: a drive that stops on the write that completes a §5.1
+interval is held (relaunched, it re-stops at once: the run kernel decides
+a write before it writes anything) while any drive still has other heavy
+writes before its own boundary; then the held drives take their interval
+writes in one masked pass. A pure-write batch with one interval length h
+thus runs ``n // h`` interval passes, whatever D is.
 """
 
 from __future__ import annotations
@@ -76,11 +88,7 @@ from repro_torch.core.ssd import (
 from repro_torch.core.workloads import OP_TRIM
 from repro_torch.kernels.gc_compact.ops import compact_slots_
 from repro_torch.kernels.gc_one.ops import gc_one_
-from repro_torch.kernels.write_run.kernel import (
-    COUNTERS,
-    STATE_FIELDS,
-    STOP_WHY,
-)
+from repro_torch.kernels.write_run.kernel import STOP_WHY
 from repro_torch.kernels.write_run.ops import write_run_
 
 INT_MAX = 2**31 - 1
@@ -95,6 +103,10 @@ host_syncs = 0
 # the writes that stopped a write_run run, by why (STOP_WHY), since the
 # count was last cleared
 run_stops = dict.fromkeys(STOP_WHY[1:], 0)
+# scan_writes' rounds (one write_run launch each) and its rounds that
+# completed §5.1 intervals, since the counts were last set to 0
+rounds = 0
+interval_batches = 0
 
 
 def check_supported(mcfg: ManagerConfig) -> None:
@@ -109,7 +121,13 @@ def check_supported(mcfg: ManagerConfig) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class SimContext:
-    """Static context of one run: geometry, policy, and the run's shape."""
+    """Static context of one run: geometry, policy, and the run's shape.
+
+    For a batch, ``mcfg`` holds what its drives share: the detector,
+    movement operations, dynamic groups, the interval length, the group
+    slots (``max_groups``, the padded cap) and the paper's constants; what
+    may differ per drive (weights, EWMA constant, allocation mode, own
+    group cap) is in the policy."""
 
     geom: Geometry
     mcfg: ManagerConfig
@@ -129,45 +147,143 @@ class SimContext:
         return self.geom.n_luns * self.geom.pages_per_block
 
 
+# the policy's per-drive tensors, each with a leading drive axis
+POLICY_TENSORS = (
+    "gc_w", "gc_w_greedy", "h", "ewma_a", "max_groups", "assumed_p",
+    "fdp_rate", "page_rate", "page_group0", "use_assumed", "alloc_closed",
+    "alloc_freq",
+)
+
+
 def policy_from_config(ctx: SimContext, device, *, assumed_p=None,
                        fdp_rate=None, page_rate=None,
                        page_group0=None) -> dict:
-    """A ManagerConfig's policy as the values the step reads: float weights,
-    FDP's assumption arrays [G], the oracle's per-page rates [LBA] and the
-    layout groups [LBA] as device tensors (zeros where not given), the
-    modes as host values."""
+    """A drive's policy as the values the step reads, each with a leading
+    drive axis of 1 (:func:`stack_policies` joins drives): float weights
+    [1, 4], the §5.1 constants, the drive's group cap, FDP's assumption
+    arrays [1, G], the oracle's per-page rates [1, LBA] and the layout
+    groups [1, LBA] as device tensors (zeros where not given); the
+    allocation mode as a host tuple, with its masks."""
     check_supported(ctx.mcfg)
     g_max, lba = ctx.mcfg.max_groups, ctx.geom.lba_pages
+    mode = ctx.mcfg.alloc_mode
 
     def f32(x, n):
         if x is None:
-            return torch.zeros(n, dtype=torch.float32, device=device)
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+            return torch.zeros((1, n), dtype=torch.float32, device=device)
+        return torch.as_tensor(np.asarray(x, np.float32),
+                               device=device).reshape(1, n)
+
+    def one(v, dtype):
+        return torch.tensor([v], dtype=dtype, device=device)
 
     policy = {
-        "alloc_mode": ctx.mcfg.alloc_mode,
-        "gc_w": torch.tensor(ctx.mcfg.gc_weights(), dtype=torch.float32,
+        "alloc_mode": (mode,),
+        "gc_w": torch.tensor([ctx.mcfg.gc_weights()], dtype=torch.float32,
                              device=device),
-        "gc_w_greedy": torch.tensor(GC_W_GREEDY, dtype=torch.float32,
+        "gc_w_greedy": torch.tensor([GC_W_GREEDY], dtype=torch.float32,
                                     device=device),
-        "h": torch.tensor(ctx.h, dtype=torch.int32, device=device),
-        "ewma_a": torch.tensor(ctx.mcfg.ewma_a, dtype=torch.float32,
-                               device=device),
+        "h": one(ctx.h, torch.int32),
+        "ewma_a": one(ctx.mcfg.ewma_a, torch.float32),
+        "max_groups": one(ctx.mcfg.max_groups, torch.int32),
         "assumed_p": f32(assumed_p, g_max),
         "fdp_rate": f32(fdp_rate, g_max),
         "page_rate": f32(page_rate, lba),
+        "use_assumed": one(mode == "fdp_assumed", torch.bool),
+        "alloc_closed": one(mode in CLOSED_FORM_MODES, torch.bool),
+        "alloc_freq": one(mode == "freq", torch.bool),
     }
     if ctx.with_trim:
         if page_group0 is None:
             raise ValueError("an op-stream run needs page_group0")
         policy["page_group0"] = torch.as_tensor(
-            np.asarray(page_group0, np.int64), device=device)
+            np.asarray(page_group0, np.int64), device=device).reshape(1, lba)
     return policy
+
+
+def stack_policies(policies) -> dict:
+    """The drives' policies (each from :func:`policy_from_config`) as one
+    batch's, in order."""
+    out = {"alloc_mode": sum((p["alloc_mode"] for p in policies), ())}
+    for k in POLICY_TENSORS:
+        if k in policies[0]:
+            out[k] = torch.cat([p[k] for p in policies])
+    return out
+
+
+def drive_policy(policy: dict, d: int) -> dict:
+    """Drive ``d``'s policy tensors as views without the drive axis (what
+    the per-drive demoting drain reads)."""
+    return {k: v[d] for k, v in policy.items() if k in POLICY_TENSORS}
 
 
 # ---------------------------------------------------------------------------
 # device indexing and host decisions
 # ---------------------------------------------------------------------------
+#
+# The heavy path indexes a batch's [D, N] fields with a [D] index, one
+# element a drive: _gat gathers, _sca and _acc scatter. The demoting drain
+# runs on one drive's views and indexes with 0-d tensors: _get, _set, _add.
+
+_made = {}  # (what, D, device) -> a constant [D] tensor
+
+
+def _one_each(n: int, device) -> torch.Tensor:
+    """An int32 1 for each of n drives, made once per (n, device)."""
+    key = ("ones", n, str(device))
+    if key not in _made:
+        _made[key] = torch.ones(n, dtype=torch.int32, device=device)
+    return _made[key]
+
+
+def _drives(n: int, device) -> torch.Tensor:
+    """The drive indices 0..n-1, made once per (n, device)."""
+    key = ("rows", n, str(device))
+    if key not in _made:
+        _made[key] = torch.arange(n, device=device)
+    return _made[key]
+
+
+def _gat(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``t[d, i[d]]`` for each drive d of a [D, N] tensor: [D], a copy."""
+    return t.gather(1, i.long().unsqueeze(1)).squeeze(1)
+
+
+def _sca(t: torch.Tensor, i: torch.Tensor, v, on=None) -> None:
+    """``t[d, i[d]] = v[d]`` in place for the drives ``on`` selects (every
+    drive when None). A Python scalar goes to the kernel as an argument:
+    a scalar made into a CUDA tensor would be a host→device copy, which
+    waits for the stream."""
+    idx = i.long().unsqueeze(1)
+    if on is not None:
+        v = torch.where(on, v, _gat(t, i))
+    if isinstance(v, torch.Tensor):
+        t.scatter_(1, idx, v.to(t.dtype).unsqueeze(1))
+    else:
+        t.scatter_(1, idx, v)
+
+
+def _acc(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor) -> None:
+    """``t[d, i[d]] += v[d]`` in place (a drive left out adds 0)."""
+    t.scatter_add_(1, i.long().unsqueeze(1), v.to(t.dtype).unsqueeze(1))
+
+
+def _row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Each drive's row ``t[d, i[d]]`` of a [D, N, M] tensor: [D, M]."""
+    return t[_drives(t.shape[0], t.device), i.long()]
+
+
+def _put_row(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor) -> None:
+    """``t[d, i[d]] = v[d]`` for each drive's row of a [D, N, M] tensor."""
+    t.index_put_((_drives(t.shape[0], t.device), i.long()), v.to(t.dtype))
+
+
+def _ones_on(st: SimState, on) -> torch.Tensor:
+    """An int32 1 for each drive ``on`` selects, 0 for the rest."""
+    if on is None:
+        return _one_each(st.n_drives, st.device)
+    return on.to(torch.int32)
+
 
 def _get(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``t[i]`` for a 0-d index tensor: a copy (never a view), no host read."""
@@ -175,9 +291,7 @@ def _get(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 
 def _set(t: torch.Tensor, i: torch.Tensor, v) -> None:
-    """``t[i] = v`` in place, for a 0-d index tensor. A Python scalar goes
-    to the kernel as an argument: a scalar made into a CUDA tensor would be
-    a host→device copy, which waits for the stream."""
+    """``t[i] = v`` in place, for a 0-d index tensor (as :func:`_sca`)."""
     if isinstance(v, torch.Tensor):
         t.index_put_((i.reshape(1),), v.to(t.dtype).expand(1, *t.shape[1:]))
     else:
@@ -192,112 +306,125 @@ def _add(t: torch.Tensor, i: torch.Tensor, v) -> None:
         _set(t, i, _get(t, i) + v)
 
 
-def _when(pred: torch.Tensor) -> bool:
-    """A decision: read a device bool on the host, counted in
-    :data:`host_syncs`."""
-    global host_syncs
-    host_syncs += 1
-    return bool(pred)
-
-
 def _read(t: torch.Tensor) -> np.ndarray:
-    """A decision that needs a whole (small) tensor on the host: one read,
+    """A decision: one read of a (small) device tensor on the host,
     counted in :data:`host_syncs`."""
     global host_syncs
     host_syncs += 1
     return t.cpu().numpy()
 
 
+def _on(sel: np.ndarray, pred: torch.Tensor):
+    """The mask of a decision read as ``sel`` from ``pred``: None when it
+    holds on every drive (no select needed), else ``pred`` itself."""
+    return None if sel.all() else pred
+
+
+def _and(pred: torch.Tensor, on) -> torch.Tensor:
+    return pred if on is None else pred & on
+
+
 # ---------------------------------------------------------------------------
-# primitive state updates
+# primitive state updates (a batch, masked per drive)
 # ---------------------------------------------------------------------------
 
-def _pop_free_block(st: SimState, g):
-    """Claim the lowest FREE block for group g (becomes its OPEN active
-    block); masked to a no-op when the pool is empty."""
+def _pop_free_block(st: SimState, g, on=None):
+    """Claim each selected drive's lowest FREE block for its group g[d]
+    (it becomes the group's OPEN active block); masked to a no-op where
+    the pool is empty."""
     free_mask = st.state == FREE
-    blk = torch.argmax(free_mask.to(torch.int32))
-    ok = _get(free_mask, blk)
+    blk = torch.argmax(free_mask.to(torch.int32), dim=1)
+    ok = _and(_gat(free_mask, blk), on)
     d = ok.to(torch.int32)
-    _add(st.grp_phys, g, d)
-    _set(st.state, blk, torch.where(ok, OPEN, _get(st.state, blk)))
-    _set(st.group_of, blk, torch.where(ok, g, _get(st.group_of, blk)))
-    _set(st.fill, blk, torch.where(ok, 0, _get(st.fill, blk)))
+    _acc(st.grp_phys, g, d)
+    _sca(st.state, blk, torch.where(ok, OPEN, _gat(st.state, blk)))
+    _sca(st.group_of, blk, torch.where(ok, g, _gat(st.group_of, blk)))
+    _sca(st.fill, blk, torch.where(ok, 0, _gat(st.fill, blk)))
     # LRU clock: a block's age is its claim time
-    _set(st.stamp, blk, torch.where(ok, st.clock, _get(st.stamp, blk)))
+    _sca(st.stamp, blk, torch.where(ok, st.clock, _gat(st.stamp, blk)))
     st.grp_surplus.copy_(surplus_of(st.grp_active, st.grp_phys, st.grp_alloc))
     st.free_blocks.sub_(d)
     st.clock.add_(d)
     return blk, ok
 
 
-def _write_page(ctx: SimContext, st: SimState, lba, g) -> None:
-    """Append application page ``lba`` to group g's active block,
-    allocating a fresh block when it is full (the heavy path's write)."""
+def _write_page(ctx: SimContext, st: SimState, lba, g, on=None) -> None:
+    """Append each selected drive's application page ``lba[d]`` to its
+    group g[d]'s active block, allocating a fresh block where it is full
+    (the heavy path's write; one read: which drives need a block)."""
     b = ctx.geom.pages_per_block
-    blk = _get(st.active_blk, g)
-    blk_full = torch.where(
-        blk >= 0, _get(st.fill, blk.clamp(min=0)) >= b, True
-    )
-    if _when(blk_full):
-        old = blk.clamp(min=0)
-        _set(st.state, old, torch.where(blk >= 0, CLOSED, _get(st.state, old)))
-        new_blk, ok = _pop_free_block(st, g)
-        _set(st.active_blk, g, torch.where(ok, new_blk, blk))
-        blk = _get(st.active_blk, g)
-    blk_c = blk.clamp(min=0)
-    slot = _get(st.fill, blk_c)
+    blk = _gat(st.active_blk, g)
+    blk_c = blk.clamp(min=0).long()
+    blk_full = torch.where(blk >= 0, _gat(st.fill, blk_c) >= b, True)
+    need = _and(blk_full, on)
+    sel = _read(need)
+    if sel.any():
+        m = _on(sel, need)
+        seal = _and(blk >= 0, m)
+        _sca(st.state, blk_c, torch.where(seal, CLOSED,
+                                          _gat(st.state, blk_c)))
+        new_blk, ok = _pop_free_block(st, g, m)
+        _sca(st.active_blk, g, torch.where(ok, new_blk, blk))
+        blk = _gat(st.active_blk, g)
+        blk_c = blk.clamp(min=0).long()
+    slot = _gat(st.fill, blk_c)
     # overflow guard: an empty pool leaves the block full — the write is
     # dropped and counted (tests assert it never fires)
     ok = (blk >= 0) & (slot < b)
-    one = ok.to(torch.int32)
+    landed = _and(ok, on)
+    one = landed.to(torch.int32)
     flat = blk_c * b + slot.clamp(max=b - 1)
-    slot_lba, valid = st.slot_lba.view(-1), st.valid.view(-1)
-    _set(slot_lba, flat, torch.where(ok, lba, _get(slot_lba, flat)))
-    _set(valid, flat, ok | _get(valid, flat))
-    _add(st.fill, blk_c, one)
-    _add(st.live, blk_c, one)
-    _set(st.page_map, lba, torch.where(ok, blk * b + slot, -1))
-    _add(st.grp_size, g, one)
-    _add(st.grp_live, g, one)
+    d = st.n_drives
+    slot_lba, valid = st.slot_lba.view(d, -1), st.valid.view(d, -1)
+    _sca(slot_lba, flat, torch.where(landed, lba, _gat(slot_lba, flat)))
+    _sca(valid, flat, landed | _gat(valid, flat))
+    _acc(st.fill, blk_c, one)
+    _acc(st.live, blk_c, one)
+    _sca(st.page_map, lba, torch.where(ok, blk * b + slot, -1), on)
+    _acc(st.grp_size, g, one)
+    _acc(st.grp_live, g, one)
     st.mapped_pages.add_(one)
-    st.n_dropped.add_(1 - one)
+    st.n_dropped.add_(_and(~ok, on).to(torch.int32))
 
 
-def _invalidate_counts(ctx: SimContext, st: SimState, lba):
-    """The counter half of an invalidate: live/grp_size/grp_live/
-    mapped_pages decrements and the old-group lookup, without the valid-bit
-    clear (the fused write, the TRIM or :func:`_clear_valid` does that).
-    Returns (old_g, old_pm); old_g is 0 for an unmapped page."""
+def _invalidate_counts(ctx: SimContext, st: SimState, lba, on=None):
+    """The counter half of an invalidate, for the selected drives:
+    live/grp_size/grp_live/mapped_pages decrements and the old-group
+    lookup, without the valid-bit clear (the fused write, the TRIM or
+    :func:`_clear_valid` does that). Returns (old_g, old_pm) [D]; old_g is
+    0 for an unmapped page, old_pm -1 for it and for a drive left out."""
     b = ctx.geom.pages_per_block
-    pm = _get(st.page_map, lba)
+    pm = _gat(st.page_map, lba)
+    if on is not None:
+        pm = torch.where(on, pm, -1)
     has = pm >= 0
     blk = pm.clamp(min=0).long() // b
-    old_g = _get(st.group_of, blk)
+    old_g = _gat(st.group_of, blk)
     d_g = torch.where(has & (old_g >= 0), -1, 0)
-    og_c = old_g.clamp(min=0).long()
-    _add(st.live, blk, torch.where(has, -1, 0))
-    _add(st.grp_size, og_c, d_g)
-    _add(st.grp_live, og_c, d_g)
+    og_c = old_g.clamp(min=0)
+    _acc(st.live, blk, torch.where(has, -1, 0))
+    _acc(st.grp_size, og_c, d_g)
+    _acc(st.grp_live, og_c, d_g)
     st.mapped_pages.sub_(has.to(torch.int32))
     return torch.where(has, old_g, 0).long(), pm
 
 
 def _clear_valid(ctx: SimContext, st: SimState, pm) -> None:
-    """Complete a deferred invalidate: clear the old slot's valid bit."""
+    """Complete a deferred invalidate: clear each old slot's valid bit
+    (nothing where ``pm`` is -1)."""
     has = pm >= 0
     flat = pm.clamp(min=0).long()
-    valid = st.valid.view(-1)
-    _set(valid, flat, ~has & _get(valid, flat))
+    valid = st.valid.view(st.n_drives, -1)
+    _sca(valid, flat, ~has & _gat(valid, flat))
 
 
 # ---------------------------------------------------------------------------
 # temperature detection — §5.6 (+ the oracle FDP bands of §6)
 # ---------------------------------------------------------------------------
 
-def _hit_rates(st: SimState) -> torch.Tensor:
+def _hit_rates(st) -> torch.Tensor:
     """Per-page update rate of each group over its mapped pages (grp_live);
-    -1 for inactive groups."""
+    -1 for inactive groups (over the last axis: one drive or a batch)."""
     s = st.grp_live.to(torch.float32).clamp(min=1.0)
     return torch.where(st.grp_active, st.grp_p / s, -1.0)
 
@@ -305,8 +432,8 @@ def _hit_rates(st: SimState) -> torch.Tensor:
 def _sgv_neighbors(st: SimState):
     """hotter/colder neighbour by current hit-rate order, from a stable
     argsort: the oracle that :func:`_neighbor_hotter` and
-    :func:`_neighbor_colder` are held to in the tests. Returns
-    ``neighbor(g, delta)``."""
+    :func:`_neighbor_colder` are held to in the tests (one drive).
+    Returns ``neighbor(g, delta)``."""
     hr = _hit_rates(st)
     g_max = hr.shape[0]
     order = torch.argsort(-hr, stable=True)
@@ -323,13 +450,15 @@ def _sgv_neighbors(st: SimState):
 def _neighbor_hotter(hr, active, g):
     """The next hotter active group of g in the stable (-hr, index) order:
     the candidate (hotter, or as hot with a lower index) with the lowest
-    hit rate, ties to the highest index; g itself when it is the hottest."""
-    idx = torch.arange(hr.shape[0], device=hr.device)
-    hr_g = _get(hr, g)
-    cand = active & ((hr > hr_g) | ((hr == hr_g) & (idx < g)))
-    min_hr = torch.where(cand, hr, torch.inf).min()
-    nb = torch.where(cand & (hr == min_hr), idx, -1).max()
-    return torch.where(cand.any(), nb, g)
+    hit rate, ties to the highest index; g itself when it is the hottest.
+    Over the last axis: hr [G] with a 0-d g, or [D, G] with g [D]."""
+    idx = torch.arange(hr.shape[-1], device=hr.device)
+    g_ = g.long().unsqueeze(-1)
+    hr_g = hr.gather(-1, g_)
+    cand = active & ((hr > hr_g) | ((hr == hr_g) & (idx < g_)))
+    min_hr = torch.where(cand, hr, torch.inf).amin(-1, keepdim=True)
+    nb = torch.where(cand & (hr == min_hr), idx, -1).amax(-1)
+    return torch.where(cand.any(-1), nb, g)
 
 
 def _neighbor_colder(hr, active, g, *, g_known_active: bool = False):
@@ -338,20 +467,22 @@ def _neighbor_colder(hr, active, g, *, g_known_active: bool = False):
     hit rate, ties to the lowest index. With no candidate an active g stays
     put and an inactive g falls to the coldest active group (argsort's
     ``clip(rank + 1, n_active - 1)``). ``g_known_active`` drops that
-    fallback (a GC drain's group is always active)."""
-    g_max = hr.shape[0]
+    fallback (a GC drain's group is always active). Over the last axis, as
+    :func:`_neighbor_hotter`."""
+    g_max = hr.shape[-1]
     idx = torch.arange(g_max, device=hr.device)
-    hr_g = _get(hr, g)
-    cand = active & ((hr < hr_g) | ((hr == hr_g) & (idx > g)))
-    best_hr = torch.where(cand, hr, -2.0).max()
-    nb = torch.where(cand & (hr == best_hr), idx, g_max).min()
+    g_ = g.long().unsqueeze(-1)
+    hr_g = hr.gather(-1, g_)
+    cand = active & ((hr < hr_g) | ((hr == hr_g) & (idx > g_)))
+    best_hr = torch.where(cand, hr, -2.0).amax(-1, keepdim=True)
+    nb = torch.where(cand & (hr == best_hr), idx, g_max).amin(-1)
     if g_known_active:
         fallback = g
     else:
-        cold_hr = torch.where(active, hr, torch.inf).min()
-        coldest = torch.where(active & (hr == cold_hr), idx, -1).max()
-        fallback = torch.where(_get(active, g), g, coldest)
-    return torch.where(cand.any(), nb, fallback)
+        cold_hr = torch.where(active, hr, torch.inf).amin(-1, keepdim=True)
+        coldest = torch.where(active & (hr == cold_hr), idx, -1).amax(-1)
+        fallback = torch.where(active.gather(-1, g_).squeeze(-1), g, coldest)
+    return torch.where(cand.any(-1), nb, fallback)
 
 
 def _bloom_hashes(ctx: SimContext, lba):
@@ -367,7 +498,7 @@ def _bloom_hashes(ctx: SimContext, lba):
 
 def _bloom_query(ctx: SimContext, filt, lba, g):
     """Whether ``lba`` (int tensor, any shape) is in group g's filter of
-    the pair ``filt`` [G, bits]."""
+    one drive's pair ``filt`` [G, bits] (g a 0-d tensor)."""
     h1, h2, bits = _bloom_hashes(ctx, lba)
     flat = filt.view(-1)
     base = g * bits
@@ -376,43 +507,50 @@ def _bloom_query(ctx: SimContext, filt, lba, g):
     return (hit1 & hit2).reshape(h1.shape)
 
 
-def _bloom_update(ctx: SimContext, st: SimState, lba, g):
-    """Insert ``lba`` into group g's active filter, and rotate the pair
-    when the group's write count reaches its size. The rotation is
-    row-masked, not a branch, so the bloom detector adds no host read.
-    Returns whether the page was in both filters before the insert."""
+def _bloom_update(ctx: SimContext, st: SimState, lba, g, on=None):
+    """Insert each selected drive's ``lba[d]`` into its group g[d]'s active
+    filter, and rotate the pair where the group's write count reaches its
+    size. The rotation is row-masked, not a branch, so the bloom detector
+    adds no host read. Returns whether each page was in both filters
+    before the insert."""
     h1, h2, bits = _bloom_hashes(ctx, lba)
-    act, pas = st.bloom_active.view(-1), st.bloom_passive.view(-1)
+    d = st.n_drives
+    act, pas = st.bloom_active.view(d, -1), st.bloom_passive.view(d, -1)
     i1, i2 = g * bits + h1, g * bits + h2
-    in_both = (_get(act, i1) & _get(act, i2)
-               & _get(pas, i1) & _get(pas, i2))
-    _set(act, i1, True)
-    _set(act, i2, True)
-    _add(st.bloom_writes, g, 1)
-    writes = _get(st.bloom_writes, g)
-    rotate = writes >= _get(st.grp_size, g).clamp(
-        min=ctx.mcfg.bloom_rotate_min_writes)
-    row = _get(st.bloom_active, g)
-    _set(st.bloom_passive, g,
-         torch.where(rotate, row, _get(st.bloom_passive, g)))
-    _set(st.bloom_active, g, row & ~rotate)
-    _set(st.bloom_writes, g, torch.where(rotate, 0, writes))
+    in_both = (_gat(act, i1) & _gat(act, i2)
+               & _gat(pas, i1) & _gat(pas, i2))
+    if on is None:
+        _sca(act, i1, True)
+        _sca(act, i2, True)
+    else:
+        _sca(act, i1, on | _gat(act, i1))
+        _sca(act, i2, on | _gat(act, i2))
+    _acc(st.bloom_writes, g, _ones_on(st, on))
+    writes = _gat(st.bloom_writes, g)
+    rotate = _and(writes >= _gat(st.grp_size, g).clamp(
+        min=ctx.mcfg.bloom_rotate_min_writes), on)
+    row = _row(st.bloom_active, g)
+    _put_row(st.bloom_passive, g,
+             torch.where(rotate[:, None], row, _row(st.bloom_passive, g)))
+    _put_row(st.bloom_active, g, row & ~rotate[:, None])
+    _sca(st.bloom_writes, g, torch.where(rotate, 0, writes))
     return in_both
 
 
-def _target_group_app(ctx: SimContext, st: SimState, lba, cur_g, policy):
-    """Target group of an application write of ``lba`` living in cur_g:
-    cur_g under the static detector; the next hotter group when FDP's
-    oracle rate beats twice the group's assumed rate, or when the page is
-    in both bloom filters."""
+def _target_group_app(ctx: SimContext, st: SimState, lba, cur_g, policy,
+                      on=None):
+    """Target group of each drive's application write of ``lba[d]`` living
+    in cur_g[d]: cur_g under the static detector; the next hotter group
+    when FDP's oracle rate beats twice the group's assumed rate, or when
+    the page is in both bloom filters."""
     td = ctx.mcfg.td_mode
     if td == "static":
         return cur_g
     if td == "fdp":
-        r = _get(policy["page_rate"], lba)
-        promote = r > 2.0 * _get(policy["fdp_rate"], cur_g)
+        r = _gat(policy["page_rate"], lba)
+        promote = r > 2.0 * _gat(policy["fdp_rate"], cur_g)
     elif td == "bloom":
-        promote = _bloom_update(ctx, st, lba, cur_g)
+        promote = _bloom_update(ctx, st, lba, cur_g, on)
     else:
         raise ValueError(f"unknown td_mode {td!r}")
     nb = _neighbor_hotter(_hit_rates(st), st.grp_active, cur_g)
@@ -420,9 +558,10 @@ def _target_group_app(ctx: SimContext, st: SimState, lba, cur_g, policy):
 
 
 def _demote_flags(ctx: SimContext, st: SimState, lbas, g, policy):
-    """The §5.6 GC demotion predicate over a victim's pages ``lbas`` [B]:
-    FDP's oracle rate below half the group's assumed rate, or the page in
-    neither bloom filter. It reads only what a drain leaves unchanged."""
+    """The §5.6 GC demotion predicate over one drive's victim pages
+    ``lbas`` [B]: FDP's oracle rate below half the group's assumed rate,
+    or the page in neither bloom filter. It reads only what a drain leaves
+    unchanged."""
     if ctx.mcfg.td_mode == "fdp":
         r = policy["page_rate"].index_select(0, lbas)
         return r < 0.5 * _get(policy["fdp_rate"], g)
@@ -492,9 +631,11 @@ def _demotion_targets(st: SimState, flagged: np.ndarray, g) -> torch.Tensor:
 
 
 def _gc_drain_bulk(ctx: SimContext, st: SimState, victim, g, policy) -> None:
-    """Migrate every live page of ``victim``, each into its target group
-    (§5.6 demotion under the FDP or bloom detector), then erase it (the JAX
-    package's ``_gc_drain_bulk``).
+    """Migrate every live page of one drive's ``victim``, each into its
+    target group (§5.6 demotion under the FDP or bloom detector), then
+    erase it (the JAX package's ``_gc_drain_bulk``). ``st`` is one drive
+    (views into its batch), ``policy`` its :func:`drive_policy`, ``victim``
+    and ``g`` 0-d tensors.
 
     Pages are counted per target group; each group whose pages overflow its
     active block claims ONE fresh block, and the i-th claim (ordered by
@@ -609,132 +750,174 @@ def _gc_drain_bulk(ctx: SimContext, st: SimState, victim, g, policy) -> None:
 
 
 def _gc_one(ctx: SimContext, st: SimState, policy, mode: str,
-            g=None) -> None:
-    """One GC (§5.4) in one ``gc_one_`` launch: the group by ``mode`` ("gc":
-    g, enabled when it needs a block it is not entitled to or the pool is
-    at reserve; "valve": where the fewest live pages are, greedy weights;
-    "movement": the most block-surplus group), the victim, and the
-    decision, all on the device. The static detector's drain runs in the
-    same launch, without a host read. A detector that can demote takes the
-    general drain here, on one read of the decision."""
+            g=None, on=None) -> None:
+    """One GC (§5.4) for each selected drive, in one ``gc_one_`` launch:
+    the group by ``mode`` ("gc": g[d], enabled when it needs a block it is
+    not entitled to or the pool is at reserve; "valve": where the fewest
+    live pages are, greedy weights; "movement": the most block-surplus
+    group), the victim, and the decision, all on the device. The static
+    detector's drain runs in the same launch, without a host read. A
+    detector that can demote takes the general drain here, after one read
+    of the D decisions, drive by drive."""
     gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
-    out = torch.empty((1, 3), dtype=torch.int64, device=st.device)
-    gc_one_(st.drive_axis, gc_w[None], None if g is None else g.reshape(1),
-            out, mode=mode, td_mode=ctx.mcfg.td_mode,
+    out = torch.empty((st.n_drives, 3), dtype=torch.int64, device=st.device)
+    gc_one_(st.drive_axis, gc_w, None if g is None else g.long(), out, on,
+            mode=mode, td_mode=ctx.mcfg.td_mode,
             gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
-    if ctx.mcfg.td_mode != "static" and _when(out[0, 2] != 0):
-        _gc_drain_bulk(ctx, st, out[0, 0], out[0, 1], policy)
+    if ctx.mcfg.td_mode == "static":
+        return
+    for d in np.flatnonzero(_read(out[:, 2] != 0)).tolist():
+        _gc_drain_bulk(ctx, st.drive(d), out[d, 0], out[d, 1],
+                       drive_policy(policy, d))
 
 
 # ---------------------------------------------------------------------------
 # over-provisioning allocation and groups (interval) — §5.1, §5.2, §5.5
 # ---------------------------------------------------------------------------
 
-def _recompute_alloc(ctx: SimContext, st: SimState, policy) -> None:
+def _select(mask: torch.Tensor, modes, want: bool, a, b):
+    """``where(mask, a(), b())`` row by row, with the mask's host copy
+    ``modes`` (a bool a drive): only the side some drive takes is made."""
+    if all(m == want for m in modes):
+        return a()
+    if not any(m == want for m in modes):
+        return b()
+    return torch.where(mask.unsqueeze(-1), a(), b())
+
+
+def _recompute_alloc(ctx: SimContext, st: SimState, policy, on=None) -> None:
+    """§5.5 for the selected drives, each by its own allocation mode."""
     geom, mcfg = ctx.geom, ctx.mcfg
     b = geom.pages_per_block
     active = st.grp_active
-    mode = policy["alloc_mode"]
+    modes = policy["alloc_mode"]
     # EFFECTIVE group sizes (carried grp_live == mapped pages per group):
     # trimmed pages leave s, so their space re-enters the OP budget
     s = torch.where(active, st.grp_live.to(torch.float32), 0.0)
     s = torch.maximum(s, active.to(torch.float32))
-    freq = policy["assumed_p"] if mode == "fdp_assumed" else st.grp_p
+    freq = _select(policy["use_assumed"],
+                   [m == "fdp_assumed" for m in modes], True,
+                   lambda: policy["assumed_p"], lambda: st.grp_p)
     p = torch.where(active, freq, 0.0)
-    p = p / torch.clamp(fsum(p), min=1e-9)
+    p = p / torch.clamp(fsum(p), min=1e-9).unsqueeze(-1)
     # usable OP = spare pages beyond logical content, minus the GC reserve
     # and one block per active group
-    n_active = active.sum(dtype=torch.int32)
+    n_active = active.sum(-1, dtype=torch.int32)
     op_total = (
         float(geom.pba_pages)
         - (mcfg.gc_reserve_blocks + 1 + n_active) * b
         - fsum(s)
     )
-    if mode in CLOSED_FORM_MODES:
-        op = allocate_closed_form(
+
+    def closed():
+        return allocate_closed_form(
             s, p, op_total,
             cold_rule=True,
             cold_hit_rate_frac=mcfg.cold_hit_rate_frac,
             cold_op_frac=mcfg.cold_op_frac,
         )
-    elif mode == "freq":
-        op = allocate_by_frequency(p, op_total)
-    else:
-        op = allocate_by_size(s, op_total)
+
+    def by_freq_or_size():
+        return _select(policy["alloc_freq"], [m == "freq" for m in modes],
+                       True, lambda: allocate_by_frequency(p, op_total),
+                       lambda: allocate_by_size(s, op_total))
+
+    op = _select(policy["alloc_closed"],
+                 [m in CLOSED_FORM_MODES for m in modes], True, closed,
+                 by_freq_or_size)
     alloc_blocks = torch.ceil((s + op) / b).to(torch.int32)
     alloc_blocks = torch.where(active, alloc_blocks.clamp(min=1), 0)
+    if on is not None:
+        alloc_blocks = torch.where(on[:, None], alloc_blocks, st.grp_alloc)
     st.grp_alloc.copy_(alloc_blocks)
     st.grp_surplus.copy_(surplus_of(active, st.grp_phys, st.grp_alloc))
 
 
-def _maybe_create_or_merge(ctx: SimContext, st: SimState) -> None:
-    """§5.2 dynamic groups, at most one create and one merge per interval.
+def _maybe_create_or_merge(ctx: SimContext, st: SimState, policy,
+                           on=None) -> None:
+    """§5.2 dynamic groups for the selected drives, at most one create and
+    one merge per interval each.
 
     Create: a new group, seeded with half the hottest group's frequency,
-    when the hottest group is at least ``q_create``× hotter per page than
-    the second and holds ``f_min_pages``. Merge: the hottest adjacent pair
-    (in hit-rate order) whose ratio fell below 1.3, or whose hotter member
-    shrank below ``f_min_pages``, becomes one group (blocks relabelled,
-    the hotter group's active block sealed). Both wait out a cooldown of
+    when the drive has a slot under its own group cap, the hottest group
+    is at least ``q_create``× hotter per page than the second and holds
+    ``f_min_pages``. Merge: the hottest adjacent pair (in hit-rate order)
+    whose ratio fell below 1.3, or whose hotter member shrank below
+    ``f_min_pages``, becomes one group (blocks relabelled, the hotter
+    group's active block sealed). Both wait out a cooldown of
     ``w_intervals``. Sorts are stable, as JAX's; two host reads.
     """
     mcfg = ctx.mcfg
     f_min = ctx.f_min_pages
     hr = _hit_rates(st)
-    order = torch.argsort(-hr, stable=True)  # hottest first
-    hottest, second = order[0], order[1]
-    n_active = st.grp_active.sum()
-    hot_ratio = _get(hr, hottest) / _get(hr, second).clamp(min=1e-12)
-    create = (
-        (n_active < mcfg.max_groups)
+    order = torch.argsort(-hr, dim=1, stable=True)  # hottest first
+    hottest, second = order[:, 0], order[:, 1]
+    n_active = st.grp_active.sum(1)
+    hot_ratio = _gat(hr, hottest) / _gat(hr, second).clamp(min=1e-12)
+    create = _and(
+        (n_active < policy["max_groups"])
         & (st.cooldown == 0)
         & (n_active >= 2)
         & (hot_ratio >= mcfg.q_create)
-        & (_get(st.grp_size, hottest) >= f_min)
-    )
-    if _when(create):
-        slot = torch.argmin(st.grp_active.to(torch.int32))  # first inactive
-        _set(st.grp_active, slot, True)
-        _set(st.grp_phys, slot, 0)
-        _set(st.grp_p, slot, _get(st.grp_p, hottest) * 0.5)
-        _set(st.grp_size, slot, 0)
-        _set(st.grp_live, slot, 0)
+        & (_gat(st.grp_size, hottest) >= f_min), on)
+    sel = _read(create)
+    if sel.any():
+        m = _on(sel, create)
+        slot = torch.argmin(st.grp_active.to(torch.int32), dim=1)  # first
+        _sca(st.grp_active, slot, True, m)                        # inactive
+        _sca(st.grp_phys, slot, 0, m)
+        _sca(st.grp_p, slot, _gat(st.grp_p, hottest) * 0.5, m)
+        _sca(st.grp_size, slot, 0, m)
+        _sca(st.grp_live, slot, 0, m)
         st.grp_surplus.copy_(
             surplus_of(st.grp_active, st.grp_phys, st.grp_alloc))
-        _set(st.grp_created, slot, st.interval)
-        st.cooldown.fill_(mcfg.w_intervals)
+        _sca(st.grp_created, slot, st.interval, m)
+        if m is None:
+            st.cooldown.fill_(mcfg.w_intervals)
+        else:
+            st.cooldown.masked_fill_(m, mcfg.w_intervals)
 
     hr = _hit_rates(st)
-    order = torch.argsort(-hr, stable=True)
-    n_active = st.grp_active.sum()
-    hr_sorted = hr.index_select(0, order)
-    hr_next = torch.roll(hr_sorted, -1)
-    valid_pair = torch.arange(hr.shape[0], device=hr.device) + 1 < n_active
+    order = torch.argsort(-hr, dim=1, stable=True)
+    g_max = hr.shape[1]
+    n_active = st.grp_active.sum(1)
+    hr_sorted = hr.gather(1, order)
+    hr_next = torch.roll(hr_sorted, -1, dims=1)
+    valid_pair = (torch.arange(g_max, device=hr.device)
+                  + 1 < n_active[:, None])
     ratio = hr_sorted / hr_next.clamp(min=1e-12)
     converged = valid_pair & (ratio < 1.3) & (hr_sorted > 0)
-    tiny = (valid_pair & (st.grp_size.index_select(0, order) < f_min)
+    tiny = (valid_pair & (st.grp_size.gather(1, order) < f_min)
             & (hr_next > 0))
     mergeable = converged | tiny
-    pair_i = torch.argmax(mergeable.to(torch.int32))
-    do_merge = _get(mergeable, pair_i) & (st.cooldown == 0) & (n_active > 2)
-    if _when(do_merge):
-        g_from = _get(order, pair_i)        # hotter of the pair
-        g_to = _get(order, pair_i + 1)      # absorbed into the colder
-        st.group_of.copy_(torch.where(st.group_of == g_from, g_to,
-                                      st.group_of))
-        ab = _get(st.active_blk, g_from)    # no longer reachable: seal it
-        ab_c = ab.clamp(min=0).long()
-        _set(st.state, ab_c, torch.where(ab >= 0, CLOSED,
-                                         _get(st.state, ab_c)))
+    pair_i = torch.argmax(mergeable.to(torch.int32), dim=1)
+    do_merge = _and(_gat(mergeable, pair_i) & (st.cooldown == 0)
+                    & (n_active > 2), on)
+    sel = _read(do_merge)
+    if sel.any():
+        m = _on(sel, do_merge)
+        g_from = _gat(order, pair_i)                          # hotter
+        g_to = _gat(order, (pair_i + 1).clamp(max=g_max - 1))  # colder
+        relabel = st.group_of == g_from[:, None]
+        if m is not None:
+            relabel = relabel & m[:, None]
+        st.group_of.copy_(torch.where(relabel, g_to[:, None], st.group_of))
+        ab = _gat(st.active_blk, g_from)    # no longer reachable: seal it
+        ab_c = ab.clamp(min=0)
+        _sca(st.state, ab_c, torch.where(_and(ab >= 0, m), CLOSED,
+                                         _gat(st.state, ab_c)))
         for arr in (st.grp_size, st.grp_live, st.grp_phys, st.grp_p,
                     st.grp_writes):
-            _add(arr, g_to, _get(arr, g_from))
-            _set(arr, g_from, 0)
-        _set(st.active_blk, g_from, -1)
-        _set(st.grp_active, g_from, False)
+            _sca(arr, g_to, _gat(arr, g_to) + _gat(arr, g_from), m)
+            _sca(arr, g_from, 0, m)
+        _sca(st.active_blk, g_from, -1, m)
+        _sca(st.grp_active, g_from, False, m)
         st.grp_surplus.copy_(
             surplus_of(st.grp_active, st.grp_phys, st.grp_alloc))
-        st.cooldown.fill_(mcfg.w_intervals)
+        if m is None:
+            st.cooldown.fill_(mcfg.w_intervals)
+        else:
+            st.cooldown.masked_fill_(m, mcfg.w_intervals)
 
 
 def _fma32(x, y, z):
@@ -755,153 +938,211 @@ def _fma32(x, y, z):
     return s.to(torch.float32)
 
 
-def _interval_update(ctx: SimContext, st: SimState, policy) -> None:
-    a = policy["ewma_a"]
-    u = st.grp_writes.to(torch.float32) / policy["h"].to(torch.float32)
-    st.grp_p.copy_(
-        torch.where(st.grp_active, _fma32(st.grp_p, 1.0 - a, a * u), 0.0)
-    )
-    st.grp_writes.zero_()
-    st.interval.add_(1)
-    st.cooldown.copy_((st.cooldown - 1).clamp(min=0))
+def _interval_update(ctx: SimContext, st: SimState, policy, on=None) -> None:
+    """§5.1 for the selected drives: the EWMA of each group's update
+    frequency (each drive's own constant), the interval clock and
+    cooldown, §5.2 groups and the §5.5 allocation."""
+    a = policy["ewma_a"].unsqueeze(1)
+    u = st.grp_writes.to(torch.float32) / policy["h"].to(
+        torch.float32).unsqueeze(1)
+    grp_p = torch.where(st.grp_active, _fma32(st.grp_p, 1.0 - a, a * u), 0.0)
+    if on is None:
+        st.grp_p.copy_(grp_p)
+        st.grp_writes.zero_()
+        st.interval.add_(1)
+        st.cooldown.copy_((st.cooldown - 1).clamp(min=0))
+    else:
+        st.grp_p.copy_(torch.where(on[:, None], grp_p, st.grp_p))
+        st.grp_writes.masked_fill_(on[:, None], 0)
+        st.interval.add_(on.to(torch.int32))
+        st.cooldown.sub_(((st.cooldown > 0) & on).to(torch.int32))
     if ctx.mcfg.dynamic_groups:
-        _maybe_create_or_merge(ctx, st)
-    _recompute_alloc(ctx, st, policy)
+        _maybe_create_or_merge(ctx, st, policy, on)
+    _recompute_alloc(ctx, st, policy, on)
 
 
 # ---------------------------------------------------------------------------
 # the step + runner
 # ---------------------------------------------------------------------------
 
-def _step_tail(ctx: SimContext, st: SimState, lba, w: int, g,
-               policy) -> None:
+def _step_tail(ctx: SimContext, st: SimState, lba, interval: bool, g,
+               policy, on=None) -> None:
     """GC → emergency valve → write → movement ops → §5.1 interval update:
-    the heavy path, downstream of invalidate + target selection. ``w`` is
-    the write clock (``n_app`` before this write)."""
+    the heavy path of each selected drive, downstream of invalidate +
+    target selection. ``interval``: the write completes a §5.1 interval
+    on every drive it acts on."""
     mcfg = ctx.mcfg
 
     # GC when the group needs a new block it is not entitled to, or the
     # pool is at reserve (the predicate is read on the device)
-    _gc_one(ctx, st, policy, "gc", g)
+    _gc_one(ctx, st, policy, "gc", g, on)
 
     # emergency valve: while the pool is (nearly) empty, greedily reclaim
     # the best victim anywhere (its group pays), a bounded number of times
-    tries = 0
-    while tries < mcfg.valve_max_tries and _when(st.free_blocks < 2):
-        _gc_one(ctx, st, policy, "valve")
-        tries += 1
+    for _ in range(mcfg.valve_max_tries):
+        low = _and(st.free_blocks < 2, on)
+        sel = _read(low)
+        if not sel.any():
+            break
+        _gc_one(ctx, st, policy, "valve", on=_on(sel, low))
 
-    _write_page(ctx, st, lba, g)
-    st.n_app.add_(1)
-    _add(st.grp_writes, g, 1)
+    _write_page(ctx, st, lba, g, on)
+    one = _ones_on(st, on)
+    st.n_app.add_(one)
+    _acc(st.grp_writes, g, one)
 
     # movement operations (§5.3): one compaction GC on the most surplus
     # group, donating the redeemed block to the pool
     if mcfg.movement_ops:
-        _gc_one(ctx, st, policy, "movement")
+        _gc_one(ctx, st, policy, "movement", on=on)
 
-    # interval completion (§5.1): n_app == w + 1 after this write
-    if (w + 1) % ctx.h == 0:
-        _interval_update(ctx, st, policy)
+    if interval:
+        _interval_update(ctx, st, policy, on)
 
 
 def _resolve_group(st: SimState, old_g, had_mapping, lba, page_group0):
-    """Residence group of a written page: its old group when it was mapped;
-    after a TRIM its layout group, or the first active group when §5.2
-    merged that one away."""
-    pg0 = _get(page_group0, lba)
-    first_active = torch.argmax(st.grp_active.to(torch.int32))
-    pg0 = torch.where(_get(st.grp_active, pg0), pg0, first_active)
+    """Residence group of each drive's written page: its old group when it
+    was mapped; after a TRIM its layout group, or the first active group
+    when §5.2 merged that one away."""
+    pg0 = _gat(page_group0, lba)
+    first_active = torch.argmax(st.grp_active.to(torch.int32), dim=1)
+    pg0 = torch.where(_gat(st.grp_active, pg0), pg0, first_active)
     return torch.where(had_mapping, old_g, pg0)
 
 
-def _split_write(ctx: SimContext, st: SimState, lba, w: int, policy) -> None:
-    """A write that stopped a run of ``write_run_``: the invalidate counts,
-    the target group, then :func:`_step_tail` (GC, the valve, the append,
-    the interval, movement). ``w`` is the write clock (``n_app`` before
-    this write). A write that stopped the run for a bloom rotation alone
-    passes every heavy predicate, and the tail lands it as the run would
-    have, with the rotation."""
-    g, old_pm = _invalidate_counts(ctx, st, lba)
+def _split_write(ctx: SimContext, st: SimState, lba, interval: bool, policy,
+                 on=None) -> None:
+    """The writes ``lba`` [D] that stopped the selected drives' runs of
+    ``write_run_``: the invalidate counts, the target group, then
+    :func:`_step_tail` (GC, the valve, the append, movement, the interval
+    when ``interval``). A write that stopped a run for a bloom rotation
+    alone passes every heavy predicate, and the tail lands it as the run
+    would have, with the rotation."""
+    g, old_pm = _invalidate_counts(ctx, st, lba, on)
     if ctx.with_trim:
         g = _resolve_group(st, g, old_pm >= 0, lba, policy["page_group0"])
     if ctx.mcfg.td_mode != "static":
         old_g = g
-        g = _target_group_app(ctx, st, lba, old_g, policy)
-        g = torch.where(_get(st.grp_active, g), g, old_g)
+        g = _target_group_app(ctx, st, lba, old_g, policy, on)
+        g = torch.where(_gat(st.grp_active, g), g, old_g)
     _clear_valid(ctx, st, old_pm)
-    _step_tail(ctx, st, lba, w, g, policy)
+    _step_tail(ctx, st, lba, interval, g, policy, on)
 
 
 def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
-                w0: int, policy, ops=None):
+                w0, policy, ops=None):
     """Fold the step over the events ``lbas`` (a device tensor) — writes,
     or with ``ops`` (host int array, op stream) writes and TRIMs —
     emitting the cumulative (n_app, n_mig) counters after every
-    ``ctx.trace_every``-th event. ``w0`` is the write clock (``n_app``) at
-    the first event. Returns device tensors (app, mig) of length
-    len(lbas) // trace_every.
+    ``ctx.trace_every``-th event. One drive: ``st`` a drive, ``lbas`` [n],
+    ``w0`` its write clock (``n_app``) at the first event, ``ops`` [n];
+    returns device tensors (app, mig) of length n // trace_every. A batch:
+    ``st`` a batch of D drives, ``lbas`` [D, n], ``w0`` D write clocks,
+    ``ops`` [D, n]; returns (app, mig) [D, n // trace_every]. ``policy``
+    is the batch's (:func:`stack_policies`), one row a drive.
 
-    One ``write_run_`` launch lands events from j until the first write
-    that needs the heavy path (or a bloom rotation); one read says where
-    and why it stopped (tallied in :data:`run_stops`). That write goes
-    through :func:`_split_write`, and the next run starts after it. The
-    write clock advances by the WRITEs the run completed, counted from the
-    op codes on the host.
+    Each round is one ``write_run_`` launch over every drive (each from
+    its own next event), one read of where and why each stopped (tallied
+    in :data:`run_stops`), and one masked pass of the heavy tail for the
+    drives that stopped on a heavy write. A drive stopped on the write
+    that completes a §5.1 interval is held while another still has a
+    heavy write before its own boundary; then every held drive takes its
+    interval write in the same pass. A drive at its end, or held, re-stops
+    at once. The write clocks advance by the WRITEs each run completed,
+    counted from the op codes on the host.
     """
-    e = ctx.trace_every
-    n = int(lbas.shape[0])
+    global rounds, interval_batches
+    if not st.is_batch:
+        app, mig = scan_writes(
+            ctx, st.batch, lbas[None], [w0], policy,
+            None if ops is None else np.asarray(ops)[None])
+        return app[0], mig[0]
+    e, h = ctx.trace_every, ctx.h
+    n_drives, n = lbas.shape
     if n % e:
         raise ValueError(f"trace_every={e} must divide the segment length {n}")
     dev = st.device
     if ops is None:
-        is_write, ops_dev = np.ones(n, bool), None
+        is_write, ops_dev = np.ones((n_drives, n), bool), None
     else:
-        is_write = np.asarray(ops) != OP_TRIM
-        ops_dev = torch.as_tensor(np.asarray(ops, np.uint8), device=dev)[None]
-    # writes_before[j]: the WRITEs among events 0..j-1
-    writes_before = np.concatenate([[0], np.cumsum(is_write)]).tolist()
-    app = torch.empty((1, n // e), dtype=torch.int32, device=dev)
+        ops = np.asarray(ops)
+        is_write = ops != OP_TRIM
+        ops_dev = torch.as_tensor(ops.astype(np.uint8), device=dev)
+    # writes_before[d, j]: drive d's WRITEs among its events 0..j-1
+    writes_before = np.concatenate(
+        [np.zeros((n_drives, 1), np.int64), np.cumsum(is_write, 1)], 1)
+    rows = np.arange(n_drives)
+    app = torch.empty((n_drives, n // e), dtype=torch.int32, device=dev)
     mig = torch.empty_like(app)
-    # one drive: a drive axis of 1 (a counter may come from the JAX package
-    # as [1], already a drive axis)
-    state = {k: getattr(st, k).view(1) if k in COUNTERS
-             else getattr(st, k)[None] for k in STATE_FIELDS}
-    run_policy = {k: policy[k][None] for k in (
+    run_policy = {k: policy[k] for k in (
         "page_rate", "fdp_rate", "page_group0") if k in policy}
-    mode = dict(h=ctx.h, trace_every=e, td_mode=ctx.mcfg.td_mode,
+    mode = dict(h=h, trace_every=e, td_mode=ctx.mcfg.td_mode,
                 movement_ops=ctx.mcfg.movement_ops,
                 bloom_rotate_min_writes=ctx.mcfg.bloom_rotate_min_writes)
-    start = torch.zeros((1, 2), dtype=torch.int64, device=dev)
-    start[:, 1] = w0
-    stop = torch.empty((1, 3), dtype=torch.int64, device=dev)
-    j, w = 0, w0
-    while j < n:
-        write_run_(lbas[None], ops_dev, start, stop, state, run_policy, app,
-                   mig, **mode)
-        if writes_before[n] == writes_before[j]:
-            break  # TRIMs alone: the run went to the end
-        s, w_s, why = _read(stop)[0].tolist()
-        w += writes_before[s] - writes_before[j]
-        if w_s != w:
+    w = np.asarray(w0, np.int64).reshape(n_drives)
+    start = torch.zeros((n_drives, 2), dtype=torch.int64, device=dev)
+    if n_drives == 1:
+        start[:, 1] = int(w[0])
+    else:
+        start[:, 1] = torch.as_tensor(w, device=dev)
+    stop = torch.empty((n_drives, 3), dtype=torch.int64, device=dev)
+    j = np.zeros(n_drives, np.int64)
+    while True:
+        write_run_(lbas, ops_dev, start, stop, st.drive_axis, run_policy,
+                   app, mig, **mode)
+        rounds += 1
+        if (writes_before[:, n] == writes_before[rows, j]).all():
+            break  # TRIMs alone: every run went to its end
+        s, w_s, why = _read(stop).T
+        w = w + writes_before[rows, s] - writes_before[rows, j]
+        if (w_s != w).any():
             raise RuntimeError(f"write clock: device {w_s}, host {w}")
-        if s == n:
+        heavy = s < n
+        if not heavy.any():
             break
-        run_stops[STOP_WHY[why]] += 1
-        _split_write(ctx, st, lbas[s], w, policy)
-        w += 1
-        if (s + 1) % e == 0:
-            app[0, (s + 1) // e - 1] = st.n_app
-            mig[0, (s + 1) // e - 1] = st.n_mig
-        j = s + 1
-        torch.add(stop[:, :2], 1, out=start)  # (s + 1, w + 1)
-    return app[0], mig[0]
+        at_boundary = heavy & ((w + 1) % h == 0)
+        other = heavy & ~at_boundary
+        interval = not other.any()
+        act = at_boundary if interval else other
+        interval_batches += interval
+        for k in why[act].tolist():
+            run_stops[STOP_WHY[k]] += 1
+        if act.all():
+            on = None
+        else:  # the same mask, made on the device from the stops
+            on = stop[:, 0] < n
+            at_dev = (stop[:, 1] + 1) % h == 0
+            on = on & (at_dev if interval else ~at_dev)
+        at = stop[:, 0]
+        if act.all() and (s == s[0]).all():  # one event: a view of it
+            lba = lbas[:, int(s[0])]
+        else:
+            lba = lbas.gather(1, at.clamp(max=n - 1)[:, None])[:, 0]
+        _split_write(ctx, st, lba, interval, policy, on)
+        # the stopped events' trace entries, where (s + 1) % e == 0 (their
+        # column is then s // e)
+        traced = act & ((s + 1) % e == 0)
+        if traced.any():
+            col = at if e == 1 else torch.div(at, e, rounding_mode="floor")
+            m = None
+            if not traced.all():
+                col = col.clamp(max=n // e - 1)
+                m = _and((at + 1) % e == 0, on)
+            _sca(app, col, st.n_app, m)
+            _sca(mig, col, st.n_mig, m)
+        j = np.where(act, s + 1, s)
+        w = np.where(act, w + 1, w)
+        if on is None:  # (s + 1, w + 1)
+            torch.add(stop[:, :2], 1, out=start)
+        else:
+            torch.add(stop[:, :2], on[:, None].to(torch.int64), out=start)
+    return app, mig
 
 
 def run(ctx: SimContext, st: SimState, lbas, *, ops=None, page_group0=None,
         page_rate=None, assumed_p=None, fdp_rate=None, device="cuda"):
-    """Run the simulator over a segment of writes (or, with ``ops``, of
-    WRITE/TRIM events) on ``device``.
+    """Run the simulator over a segment of one drive's writes (or, with
+    ``ops``, of WRITE/TRIM events) on ``device``: the batched path at D = 1.
 
     lbas: int array [T]. ops: int array [T] of op codes (an op-stream
     context, ``ctx.with_trim``, needs it and ``page_group0`` [LBA], the

@@ -252,15 +252,44 @@ class SimState:
     def device(self) -> torch.device:
         return self.page_map.device
 
+    @property
+    def is_batch(self) -> bool:
+        """Whether this is a batch of drives: every field with a leading
+        drive axis (``page_map [D, LBA]``, a counter ``[D]``)."""
+        return self.page_map.dim() == 2
+
+    @property
+    def n_drives(self) -> int:
+        """Drives in a batch; 1 for a drive."""
+        return self.page_map.shape[0] if self.is_batch else 1
+
     @functools.cached_property
     def drive_axis(self) -> types.MappingProxyType:
-        """Every field as a view with a leading drive axis of 1 (a counter
-        as ``[1]``), the layout the batched kernels take, read-only. Made
-        once per state: the fields are never rebound, only updated in
-        place, so a kernel may check and pack it once."""
+        """Every field with a leading drive axis, the layout the batched
+        kernels take, read-only: a drive's fields as views with an axis of
+        1 (a counter as ``[1]``), a batch's fields as they are. Made once
+        per state: the fields are never rebound, only updated in place, so
+        a kernel may check and pack it once."""
+        if self.is_batch:
+            return types.MappingProxyType(dict(self.items()))
         return types.MappingProxyType({
             k: v.view(1) if k in COUNTER_FIELDS else v[None]
             for k, v in self.items()})
+
+    @functools.cached_property
+    def batch(self) -> "SimState":
+        """This drive as a batch of one: its fields as views with a
+        leading drive axis of 1 (what the simulator's heavy path takes),
+        made once; a batch is its own."""
+        if self.is_batch:
+            return self
+        return SimState(**self.drive_axis)
+
+    def drive(self, d: int) -> "SimState":
+        """Drive ``d`` of a batch, its fields as views into the batch's:
+        an update of one updates the other, and no two drives' views
+        share an element."""
+        return SimState(**{k: v[d] for k, v in self.items()})
 
     def to(self, device) -> "SimState":
         """This state on ``device`` (itself when it is already there)."""
@@ -326,6 +355,15 @@ class SimState:
             "degraded_consistent": (self.drive_status == STATUS_OK)
             | (self.degraded_at >= 0),
         }
+
+
+def stack_states(states) -> SimState:
+    """A batch of drives from drive states of one shape: every field
+    copied into a new tensor with a leading drive axis, so no field of the
+    batch shares storage with another or with the drives'."""
+    return SimState(**{
+        k: torch.stack([getattr(s, k) for s in states])
+        for k in SIM_STATE_FIELDS})
 
 
 def assert_invariants(st: SimState, label: str = "") -> None:

@@ -1,12 +1,13 @@
-"""Workload generators (paper §6 experiments and TRIM op streams), numpy
-only.
+"""Workload generators (paper §6 experiments and TRIM op streams).
 
 The counterpart of ``repro.core.workloads``: the same phases and the same
 ``numpy.random.Generator`` draws, so one seed gives the JAX package and this
-package the identical write stream. A phase is (group sizes in pages,
-per-group update probabilities, optional per-group TRIM probabilities);
-events are i.i.d.: group ~ Categorical(p), page ~ Uniform(group), and, with
-trim probabilities, op ~ Bernoulli(trim_probs[group]) over {WRITE, TRIM}.
+package the identical write stream; and, for fleets, the same phase
+sequence drawn on the device (:func:`sample_phases_device`). A phase is
+(group sizes in pages, per-group update probabilities, optional per-group
+TRIM probabilities); events are i.i.d.: group ~ Categorical(p), page ~
+Uniform(group), and, with trim probabilities, op ~
+Bernoulli(trim_probs[group]) over {WRITE, TRIM}.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 OP_WRITE, OP_TRIM = 0, 1
 
@@ -67,6 +69,81 @@ class Phase:
             rng.random(self.n_writes) * np.asarray(self.sizes)[groups]
         ).astype(np.int64)
         return groups, (offsets[groups] + within).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# on-device sampling (fleets)
+# ---------------------------------------------------------------------------
+
+def phase_param_arrays(phases, *, g_max: int | None = None,
+                       p_max: int | None = None) -> dict:
+    """Pad a phase sequence to fixed-shape numpy arrays for on-device
+    sampling: probs/sizes/offsets/trim_probs [P, G] (zero-padded), counts
+    [P] (events per phase; padded phases get 0 and are never reached),
+    n_groups [P]. Drives of a fleet pad to shared (p_max, g_max)."""
+    p_n = p_max or len(phases)
+    g_n = g_max or max(len(ph.sizes) for ph in phases)
+    if len(phases) > p_n:
+        raise ValueError(f"{len(phases)} phases, padded to {p_n}")
+    probs = np.zeros((p_n, g_n), np.float32)
+    sizes = np.zeros((p_n, g_n), np.int32)
+    offsets = np.zeros((p_n, g_n), np.int32)
+    trim_probs = np.zeros((p_n, g_n), np.float32)
+    counts = np.zeros(p_n, np.int32)
+    n_groups = np.ones(p_n, np.int32)
+    for i, ph in enumerate(phases):
+        k = len(ph.sizes)
+        probs[i, :k] = ph.probs
+        sizes[i, :k] = ph.sizes
+        offsets[i, :k] = np.concatenate([[0], np.cumsum(ph.sizes)])[:-1]
+        trim_probs[i, : len(ph.trim_probs)] = ph.trim_probs
+        counts[i] = ph.n_writes
+        n_groups[i] = k
+    return {
+        "probs": probs, "sizes": sizes, "offsets": offsets,
+        "trim_probs": trim_probs, "counts": counts, "n_groups": n_groups,
+    }
+
+
+def sample_phases_device(gen: torch.Generator, params: dict, n_total: int,
+                         with_ops: bool = False):
+    """Draw the [n_total] event stream of a phase sequence on ``gen``'s
+    device (int32 page numbers; with ``with_ops`` the pair (ops, lbas)).
+
+    The JAX package's algorithm: each event's phase by a searchsorted over
+    the phase counts, its group by comparing a uniform draw with the
+    phase's CDF (clamped to the phase's last group against float
+    round-off), its page uniform within the group, and with ``with_ops``
+    a third uniform draw decides a TRIM by the group's trim probability.
+    The same distribution as :meth:`Phase.sample`, drawn from ``gen``
+    (seed it from the drive's seed alone): a different stream from numpy's
+    and from ``jax.random``'s.
+    """
+    dev = gen.device
+
+    def t(name, dtype):
+        return torch.as_tensor(params[name], dtype=dtype, device=dev)
+
+    counts, probs = t("counts", torch.int64), t("probs", torch.float32)
+    sizes, offsets = t("sizes", torch.int64), t("offsets", torch.int64)
+    n_groups = t("n_groups", torch.int64)
+    pos = torch.arange(n_total, device=dev)
+    ph = torch.searchsorted(torch.cumsum(counts, 0), pos, right=True)
+    ph = ph.clamp(max=counts.shape[0] - 1)
+    u_grp = torch.rand(n_total, generator=gen, device=dev)
+    u_page = torch.rand(n_total, generator=gen, device=dev)
+    cdf = torch.cumsum(probs, 1)  # [P, G]
+    g = (u_grp[:, None] >= cdf[ph]).sum(1)
+    g = torch.minimum(g, n_groups[ph] - 1)  # float-roundoff tail guard
+    size = sizes[ph, g]
+    within = torch.minimum((u_page * size.to(torch.float32)).long(),
+                           size - 1)
+    lbas = (offsets[ph, g] + within).to(torch.int32)
+    if not with_ops:
+        return lbas
+    u_op = torch.rand(n_total, generator=gen, device=dev)
+    ops = (u_op < t("trim_probs", torch.float32)[ph, g]).to(torch.int32)
+    return ops, lbas
 
 
 def split_sizes(lba: int, fracs) -> tuple[int, ...]:

@@ -25,6 +25,10 @@
 //           the argmax is the first maximum, index 0 when all are −inf.
 //           ok = closed[v] & (γ > 0 | live[v] < B); do = ok & free >= 1 &
 //           enabled. out[d] = (victim, g, do).
+//   enable  a drive whose enable[d] is 0 is left as it is: out[d] =
+//           (-1, -1, 0) and no other store (a fleet's round runs the GCs
+//           of the drives that stopped on a heavy write, and no other).
+//           A null enable enables every drive.
 //   drain   (static detector only, when do) exactly _gc_drain_bulk_static:
 //           the live slots' ranks from warp ballots, pages into the
 //           group's active block and then at most one fresh block (the
@@ -96,6 +100,7 @@ struct Ptrs {
   int32_t* clock;           // [D]
   const float* gc_w;        // [D, 4]: (α, β, γ, τ)
   const int64_t* g;         // [D], kModeGc only (null otherwise)
+  const uint8_t* enable;    // [D], or null: every drive enabled
   int64_t* out;             // [D, 3]: (victim, g, do)
 };
 constexpr int kNumPtrs = sizeof(Ptrs) / sizeof(void*);
@@ -178,6 +183,14 @@ gc_one_kernel(const Ptrs p, const Dims n) {
 
   const int64_t d = blockIdx.x;
   const int tid = threadIdx.x;
+  if (p.enable && !p.enable[d]) {  // the whole block leaves together
+    if (tid == 0) {
+      p.out[3 * d] = -1;
+      p.out[3 * d + 1] = -1;
+      p.out[3 * d + 2] = 0;
+    }
+    return;
+  }
   const int G = static_cast<int>(n.n_groups);
   const int K = static_cast<int>(n.n_blocks);
   const int B = static_cast<int>(n.pages_per_block);

@@ -38,7 +38,7 @@ STATE_FIELDS = (
 COUNTERS = ("erase_total", "erase_sq_total", "free_blocks", "mapped_pages",
             "n_mig", "n_dropped", "n_erase", "clock")
 # the kernel's pointer struct (Ptrs in gc_one.cu), in order
-ORDER = STATE_FIELDS + ("gc_w", "g", "out")
+ORDER = STATE_FIELDS + ("gc_w", "g", "enable", "out")
 
 
 def check_state(state) -> None:
@@ -75,10 +75,11 @@ def check_state(state) -> None:
         for name, (dtype, shape) in shapes.items()})
 
 
-def check_call(state, gc_w, g, out, *, mode, td_mode) -> None:
+def check_call(state, gc_w, g, out, *, mode, td_mode, enable=None) -> None:
     """Raise unless the rest of a call fits the checked ``state``: gc_w
     [D, 4] float32 (α, β, γ, τ); g [D] int64 in mode "gc", None in the
-    others; out [D, 3] int64; contiguous, on the state's device."""
+    others; out [D, 3] int64; enable [D] bool, or None (every drive);
+    contiguous, on the state's device."""
     if mode not in MODES:
         raise ValueError(f"gc_one: mode {mode!r} not in {MODES}")
     if td_mode not in TD_MODES:
@@ -93,17 +94,20 @@ def check_call(state, gc_w, g, out, *, mode, td_mode) -> None:
              "out": (out, torch.int64, (d, 3))}
     if g is not None:
         specs["g"] = (g, torch.int64, (d,))
+    if enable is not None:
+        specs["enable"] = (enable, torch.bool, (d,))
     _build.check_tensors("gc_one", **specs)
 
 
-def check_args(state, gc_w, g, out, *, mode, td_mode,
+def check_args(state, gc_w, g, out, enable=None, *, mode, td_mode,
                gc_reserve_blocks) -> None:
     """Raise unless the arguments are what the kernel takes
     (:func:`check_state`, :func:`check_call`; gc_reserve_blocks: any
     int)."""
     del gc_reserve_blocks
     check_state(state)
-    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode)
+    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode,
+               enable=enable)
 
 
 # the last read-only state mapping launched on, and its packed pointers
@@ -125,20 +129,22 @@ def _state_pointers(state) -> list:
     return ptrs
 
 
-def gc_one_cuda(state, gc_w, g, out, *, mode, td_mode,
+def gc_one_cuda(state, gc_w, g, out, enable=None, *, mode, td_mode,
                 gc_reserve_blocks) -> None:
-    """Launch the kernel on the current stream: one GC per drive, decided
-    (and under the static detector drained) on the card, in place; writes
-    (victim, g, do) into ``out``."""
+    """Launch the kernel on the current stream: one GC per enabled drive,
+    decided (and under the static detector drained) on the card, in
+    place; writes (victim, g, do) into ``out``, (-1, -1, 0) for a drive
+    that ``enable`` leaves out."""
     global launches
     state_ptrs = _state_pointers(state)
-    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode)
+    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode,
+               enable=enable)
     if not out.is_cuda:
         raise ValueError(f"gc_one_cuda: tensors on {out.device}")
     fn = _build.launcher("gc_one")
     ptrs = (ctypes.c_void_p * len(ORDER))(
         *state_ptrs, gc_w.data_ptr(), None if g is None else g.data_ptr(),
-        out.data_ptr())
+        None if enable is None else enable.data_ptr(), out.data_ptr())
     n_drives, k, b = state["slot_lba"].shape
     dims = (ctypes.c_longlong * 5)(
         state["page_map"].shape[-1], k, b, state["grp_size"].shape[-1],

@@ -11,18 +11,20 @@ from .kernel import check_args, gc_one_cuda
 from .ref import gc_one_ref
 
 
-def gc_one_(state, gc_w, g, out, **mode):
-    """In place: one GC per drive, choosing the group by ``mode`` ("gc":
-    the group ``g[d]``; "valve"; "movement"), the victim by the weights
-    ``gc_w[d]``, and deciding it; under ``td_mode="static"`` the victim is
-    drained too. ``out[d] = (victim, g, do)``. See
+def gc_one_(state, gc_w, g, out, enable=None, **mode):
+    """In place: one GC per drive that ``enable`` [D] enables (None:
+    every drive), choosing the group by ``mode`` ("gc": the group
+    ``g[d]``; "valve"; "movement"), the victim by the weights ``gc_w[d]``,
+    and deciding it; under ``td_mode="static"`` the victim is drained too.
+    ``out[d] = (victim, g, do)``; a drive left out keeps its state and gets
+    ``(-1, -1, 0)``. See
     ``kernels/csrc/gc_one.cu`` for the contract and ``kernel.check_args``
     for the arguments; ``mode`` is mode, td_mode and gc_reserve_blocks."""
     if out.is_cuda:
-        gc_one_cuda(state, gc_w, g, out, **mode)  # checks its args
+        gc_one_cuda(state, gc_w, g, out, enable, **mode)  # checks its args
     elif out.device.type == "cpu":
-        check_args(state, gc_w, g, out, **mode)
-        gc_one_ref(state, gc_w, g, out, **mode)
+        check_args(state, gc_w, g, out, enable, **mode)
+        gc_one_ref(state, gc_w, g, out, enable, **mode)
     else:
         raise ValueError(f"gc_one: no kernel for {out.device}")
 

@@ -7,7 +7,8 @@ the pool is at reserve; the emergency valve's group of the CLOSED block
 with the fewest live pages; the movement operation's group of the largest
 surplus), its victim by the weighted score (:func:`select_victim`), and
 decides; under the static detector a decided GC drains the victim
-(:func:`drain_static`). ``out[d] = (victim, g, do)``.
+(:func:`drain_static`). ``out[d] = (victim, g, do)``. A drive that
+``enable`` leaves out is not touched: ``out[d] = (-1, -1, 0)``.
 
 Decisions are Python values read from the tensors, uncounted: on the CPU
 the tensors are the host's own. The score is the simulator's float32
@@ -184,11 +185,15 @@ def drain_static(s, victim: int, g: int) -> None:
     s["erase_sq_total"].add_(2 * e_old + 1)
 
 
-def gc_one_ref(state, gc_w, g, out, *, mode, td_mode,
+def gc_one_ref(state, gc_w, g, out, enable=None, *, mode, td_mode,
                gc_reserve_blocks) -> None:
     """In place, the arguments of ``gc_one_cuda`` (see
-    ``kernel.check_args``): each drive's GC, one drive after another."""
+    ``kernel.check_args``): each enabled drive's GC, one drive after
+    another."""
     for d in range(out.shape[0]):
+        if enable is not None and not bool(enable[d]):
+            out[d] = torch.tensor([-1, -1, 0], device=out.device)
+            continue
         s = {k: v[d] for k, v in state.items()}
         victim, grp, do = decide(
             s, gc_w[d], None if g is None else int(g[d]), mode=mode,

@@ -68,3 +68,67 @@ def test_fsum_is_the_reference_sum(n):
         x = (rng.random(n) * 10.0 ** rng.integers(-3, 4)).astype(np.float32)
         want = np.float32(jax.jit(jnp.sum)(jnp.asarray(x)))
         assert port.fsum(torch.from_numpy(x)).item() == want
+
+
+def _rows(seed, d=5, n=6):
+    """d drives' (s, p, OP) with one group count: ties, a cold group and
+    inactive groups on some rows, as in _inputs."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(1, 5000, (d, n)).astype(np.float32)
+    p = rng.random((d, n)).astype(np.float32)
+    s[0], p[0] = s[0, 0], p[0, 0]          # ties
+    p[1, int(rng.integers(0, n))] = 1e-5    # a cold group
+    s[2, n // 2:], p[2, n // 2:] = 0.0, 0.0  # inactive groups
+    op = rng.integers(100, 20000, d).astype(np.float32)
+    return s, p, op
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_drive_axis_rows_equal_each_row_and_reference(seed):
+    """On [D, G], fsum, the three allocators and total_wa give each row
+    bit for bit what that row gives alone, and the JAX package's values."""
+    s, p, op = _rows(seed)
+    ts, tp = torch.from_numpy(s), torch.from_numpy(p)
+    top = torch.from_numpy(op)
+    batched = {
+        "fsum": port.fsum(ts),
+        "size": port.allocate_by_size(ts, top),
+        "freq": port.allocate_by_frequency(tp, top),
+        "closed": port.allocate_closed_form(ts, tp, top),
+        "total_wa": port.total_wa(ts, tp / port.fsum(tp)[:, None],
+                                  torch.from_numpy(op[:, None] / 6 + s)),
+    }
+    for d in range(len(s)):
+        rs, rp, rop = ts[d], tp[d], top[d]
+        alone = {
+            "fsum": port.fsum(rs),
+            "size": port.allocate_by_size(rs, rop),
+            "freq": port.allocate_by_frequency(rp, rop),
+            "closed": port.allocate_closed_form(rs, rp, rop),
+            "total_wa": port.total_wa(rs, rp / port.fsum(rp),
+                                      torch.from_numpy(op[d] / 6 + s[d])),
+        }
+        for k, v in alone.items():
+            assert torch.equal(batched[k][d], v), (d, k)
+        js, jp = jnp.asarray(s[d]), jnp.asarray(p[d])
+        _close(batched["size"][d], ref.allocate_by_size(js, op[d]))
+        _close(batched["freq"][d], ref.allocate_by_frequency(jp, op[d]))
+        _close(batched["closed"][d], ref.allocate_closed_form(js, jp, op[d]))
+        want = ref.total_wa(js, jp / jnp.sum(jp),
+                            jnp.asarray(op[d] / 6 + s[d]))
+        np.testing.assert_allclose(batched["total_wa"][d].numpy(),
+                                   np.asarray(want), rtol=1e-5)
+        assert port.fsum(rs).item() == np.float32(
+            jax.jit(jnp.sum)(js)), d
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_group_wa_matches_reference(seed):
+    """Eq. 4 per group (the 80-step float32 bisection) against the JAX
+    package's, over sizes and over-provisionings from tight to loose."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(1, 5000, 8).astype(np.float32)
+    op = (s * rng.uniform(0.01, 3.0, 8)).astype(np.float32)
+    np.testing.assert_allclose(
+        port.group_wa(torch.from_numpy(s), torch.from_numpy(op)).numpy(),
+        np.asarray(ref.group_wa(jnp.asarray(s), jnp.asarray(op))), rtol=1e-5)

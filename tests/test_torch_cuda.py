@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import managers, simulator, workloads
+from repro_torch.core import fleet, managers, simulator, workloads
 from repro_torch.core.ssd import Geometry, assert_invariants
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -233,7 +233,7 @@ def test_write_run_kernel_matches_plain_version(cuda, td_mode, with_trim, d):
         state={k: (v.view(1) if k in wr_kernel.COUNTERS else v[None])
                for k, v in ((k, getattr(st, k).cpu())
                             for k in wr_kernel.STATE_FIELDS)},
-        policy={k: policy[k][None].cpu() for k in (
+        policy={k: policy[k].cpu() for k in (
             "page_rate", "fdp_rate", "page_group0") if k in policy},
         app=torch.full((d, n), -1, dtype=torch.int32),
         mig=torch.full((d, n), -1, dtype=torch.int32),
@@ -323,6 +323,103 @@ def test_gc_one_kernel_matches_plain_version(cuda, td_mode, mode, d):
     else:  # the demoting drain is the host's
         for k, v in want["state"].items():
             assert torch.equal(v, args["state"][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["gc", "valve", "movement"])
+@pytest.mark.parametrize("td_mode", ["static", "fdp"])
+def test_gc_one_kernel_with_enable_matches_plain_version(cuda, td_mode,
+                                                         mode):
+    """Four Table-2 drives with every other one disabled: the kernel and
+    gc_one_ref land the same (out and every field), a disabled drive's
+    state is untouched and its out (-1, -1, 0)."""
+    ctx, st, policy, _ = _table2_drive(td_mode, False)
+    d, b = 4, TABLE2.pages_per_block
+    state = {k: (v.view(1) if k in gc_one_kernel.COUNTERS else v[None])
+             for k, v in ((k, getattr(st, k).cpu())
+                          for k in gc_one_kernel.STATE_FIELDS)}
+    state = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
+             for k, v in state.items()}
+    g = torch.arange(d) % ctx.n_groups
+    if mode == "gc":  # open blocks full and over budget: decided
+        for i in range(d):
+            state["fill"][i, int(state["active_blk"][i, g[i]])] = b
+            state["grp_alloc"][i, g[i]] = 0
+    gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"].cpu()
+    enable = torch.tensor([True, False, True, False])
+    args = dict(state=state, gc_w=gc_w.repeat(d, 1),
+                g=g if mode == "gc" else None, enable=enable,
+                out=torch.full((d, 3), -9, dtype=torch.int64))
+    kw = dict(mode=mode, td_mode=td_mode,
+              gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
+
+    def on(device):
+        return {k: None if v is None else (
+            {kk: vv.to(device, copy=True) for kk, vv in v.items()}
+            if isinstance(v, dict) else v.to(device, copy=True))
+            for k, v in args.items()}
+
+    got, want = on(cuda), on("cpu")
+    gc_one_kernel.gc_one_cuda(**got, **kw)
+    torch.cuda.synchronize()
+    gc_one_ref.gc_one_ref(**want, **kw)
+    assert torch.equal(got["out"].cpu(), want["out"])
+    assert (want["out"][1::2] == torch.tensor([-1, -1, 0])).all()
+    for k, v in want["state"].items():
+        assert torch.equal(got["state"][k].cpu(), v), k
+        assert torch.equal(v[1::2], args["state"][k][1::2]), k
+
+
+def _mixed_fleet(n):
+    """Drives of every sub-batch kind at Geometry(4, 32, 8): static
+    closed-form (two seeds, one on a two-phase swap), fdp, single_group,
+    bloom with §5.2, and a TRIM op stream."""
+    lba = Geometry(4, 32, 8).lba_pages
+    return [
+        fleet.DriveSpec(managers.wolf(), (workloads.two_modal(lba, n),), 1),
+        fleet.DriveSpec(managers.wolf(), tuple(workloads.swap_phases(
+            lba, n // 2)), 2),
+        fleet.DriveSpec(managers.fdp(), (workloads.two_modal(lba, n),), 3),
+        fleet.DriveSpec(managers.single_group(),
+                        (workloads.uniform(lba, n),), 4),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_like(lba, n),), 5),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_churn(lba, n),), 6),
+    ]
+
+
+@pytest.mark.cuda
+def test_card_fleet_matches_cpu_fleet(cuda):
+    """A fleet of every sub-batch kind (numpy streams) on the card equals
+    the same fleet on the CPU: traces, every state field, and each
+    sub-batch's rounds, interval batches and host syncs."""
+    geom, specs = Geometry(4, 32, 8), _mixed_fleet(3000)
+    n = wr_kernel.launches
+    card = fleet.simulate_fleet(geom, specs, sampler="numpy")
+    assert wr_kernel.launches - n == sum(m["rounds"] for m in card.exec_meta)
+    host = fleet.simulate_fleet(geom, specs, sampler="numpy", device="cpu")
+    np.testing.assert_array_equal(card.app, host.app)
+    np.testing.assert_array_equal(card.mig, host.mig)
+    assert card.exec_meta == host.exec_meta
+    for i in range(len(specs)):
+        for name, v in card.state(i).items():
+            assert torch.equal(v.cpu(), host.state(i)[name]), (i, name)
+        assert_invariants(card.state(i))
+
+
+@pytest.mark.cuda
+def test_card_device_sampler_fleet(cuda):
+    """The device sampler on the card: a fleet runs, keeps its invariants
+    and drops nothing, and the same seeds run it again identically."""
+    geom, specs = Geometry(4, 32, 8), _mixed_fleet(2000)
+    a = fleet.simulate_fleet(geom, specs)
+    b = fleet.simulate_fleet(geom, specs)
+    np.testing.assert_array_equal(a.app, b.app)
+    np.testing.assert_array_equal(a.mig, b.mig)
+    for i in range(len(specs)):
+        assert_invariants(a.state(i))
+        assert int(a.state(i).n_dropped) == 0
 
 
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}

@@ -94,9 +94,9 @@ def test_bloom_updates_and_queries_match_reference():
         assert got_q == want_q
         ref_st, want = ref_simulator._bloom_update(
             ref_ctx, ref_st, jnp.asarray(lba, jnp.int32), g)
-        got = simulator._bloom_update(ctx, st, torch.tensor(lba),
-                                      torch.tensor(g))
-        assert bool(got) == bool(want)
+        got = simulator._bloom_update(ctx, st.batch, torch.tensor([lba]),
+                                      torch.tensor([g]))
+        assert bool(got[0]) == bool(want)
     for name in ("bloom_active", "bloom_passive", "bloom_writes"):
         np.testing.assert_array_equal(st[name].numpy(),
                                       np.asarray(ref_st[name]), err_msg=name)

@@ -77,7 +77,7 @@ def _gc_states(preset, seed, heavy=STOPS):
                 bloom_rotate_min_writes=ctx.mcfg.bloom_rotate_min_writes)
     state = {k: getattr(st, k).view(1) if k in wr_kernel.COUNTERS
              else getattr(st, k)[None] for k in wr_kernel.STATE_FIELDS}
-    run_policy = {k: policy[k][None] for k in (
+    run_policy = {k: policy[k] for k in (
         "page_rate", "fdp_rate", "page_group0")}
     n = len(lbas)
     j, w = 0, int(st.n_app)
@@ -91,31 +91,32 @@ def _gc_states(preset, seed, heavy=STOPS):
             torch.zeros((1, n), dtype=torch.int32), **mode)
         s, w, _ = stop[0].tolist()
         assert s < n, "the segment ran out before the heavy writes"
-        lba = torch.tensor(lbas[s])
+        lba = torch.tensor([lbas[s]])
+        bst = st.batch  # the drive as a batch of one: views of st
         # the head of _split_write, then _step_tail
-        g, old_pm = simulator._invalidate_counts(ctx, st, lba)
-        g = simulator._resolve_group(st, g, old_pm >= 0, lba,
+        g, old_pm = simulator._invalidate_counts(ctx, bst, lba)
+        g = simulator._resolve_group(bst, g, old_pm >= 0, lba,
                                      policy["page_group0"])
         if td != "static":
             old_g = g
-            g = simulator._target_group_app(ctx, st, lba, old_g, policy)
-            g = torch.where(simulator._get(st.grp_active, g), g, old_g)
-        simulator._clear_valid(ctx, st, old_pm)
+            g = simulator._target_group_app(ctx, bst, lba, old_g, policy)
+            g = torch.where(simulator._gat(bst.grp_active, g), g, old_g)
+        simulator._clear_valid(ctx, bst, old_pm)
         yield ctx, st, policy, rate, "gc", int(g)
-        simulator._gc_one(ctx, st, policy, "gc", g)
+        simulator._gc_one(ctx, bst, policy, "gc", g)
         tries = 0
         while tries < ctx.mcfg.valve_max_tries and int(st.free_blocks) < 2:
             yield ctx, st, policy, rate, "valve", None
-            simulator._gc_one(ctx, st, policy, "valve")
+            simulator._gc_one(ctx, bst, policy, "valve")
             tries += 1
-        simulator._write_page(ctx, st, lba, g)
+        simulator._write_page(ctx, bst, lba, g)
         st.n_app.add_(1)
-        simulator._add(st.grp_writes, g, 1)
+        simulator._acc(bst.grp_writes, g, torch.ones(1, dtype=torch.int32))
         if ctx.mcfg.movement_ops:
             yield ctx, st, policy, rate, "movement", None
-            simulator._gc_one(ctx, st, policy, "movement")
+            simulator._gc_one(ctx, bst, policy, "movement")
         if (w + 1) % ctx.h == 0:
-            simulator._interval_update(ctx, st, policy)
+            simulator._interval_update(ctx, bst, policy)
         j, w = s + 1, w + 1
 
 
@@ -135,7 +136,8 @@ def _jax(ctx, st, policy, page_rate):
     ref_st = ref_ssd.SimState(**{
         k: jnp.asarray(v) for k, v in convert.state_to_numpy(st).items()})
     ref_policy = ref_simulator.policy_from_config(
-        ref_ctx, policy["assumed_p"].numpy(), policy["fdp_rate"].numpy())
+        ref_ctx, policy["assumed_p"][0].numpy(),
+        policy["fdp_rate"][0].numpy())
     rates = jnp.asarray(page_rate)
     return ref_ctx, ref_st, ref_policy, lambda s, lba: rates[lba]
 
@@ -177,8 +179,8 @@ def _port_gc_one(ctx, st, policy, mode, g=None):
     """The simulator's _gc_one on ``st`` in place; returns the host reads
     it made."""
     before = simulator.host_syncs
-    simulator._gc_one(ctx, st, policy, mode,
-                      None if g is None else torch.tensor(g))
+    simulator._gc_one(ctx, st.batch, policy, mode,
+                      None if g is None else torch.tensor([g]))
     return simulator.host_syncs - before
 
 
@@ -262,8 +264,8 @@ def _first_decided(preset, seed, mode):
         if mode == "gc" and kind != "gc":
             continue
         got = _copy(st)
-        simulator._gc_one(ctx, got, policy, mode,
-                          torch.tensor(g) if mode == "gc" else None)
+        simulator._gc_one(ctx, got.batch, policy, mode,
+                          torch.tensor([g]) if mode == "gc" else None)
         if int(got.n_erase) > int(st.n_erase):
             return ctx, _copy(st), policy, rate, kind, g
     raise AssertionError(f"no {mode} GC drained")
@@ -290,6 +292,31 @@ def test_batched_drives_equal_single_drive_calls(mode):
         assert torch.equal(args["out"][d], one["out"][0])
         for k, v in one["state"].items():
             assert torch.equal(args["state"][k][d], v[0]), k
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("preset", ["wolf_wear", "fdp"])
+def test_disabled_drives_are_left_alone(preset, mode):
+    """With ``enable`` false on some drives, those drives' state is bit for
+    bit what it was and their out is (-1, -1, 0); the enabled drives land
+    what a call with every drive enabled lands."""
+    drives = [_first_decided(preset, seed, mode) for seed in (1, 2, 3, 4)]
+    ctx, policy = drives[0][0], drives[0][2]
+    groups = [d[5] for d in drives] if mode == "gc" else None
+    states = [d[1] for d in drives]
+    every, kw = _args(ctx, states, policy, mode, groups)
+    gc_ops.gc_one_(**every, **kw)
+    some, _ = _args(ctx, states, policy, mode, groups)
+    before = {k: v.clone() for k, v in some["state"].items()}
+    enable = torch.tensor([True, False, True, False])
+    gc_ops.gc_one_(**some, enable=enable, **kw)
+    assert every["out"][:, 2].all()
+    for d in range(len(drives)):
+        want = every if enable[d] else {"state": before, "out": torch.tensor(
+            [[-1, -1, 0]] * len(drives))}
+        assert torch.equal(some["out"][d], want["out"][d]), d
+        for k, v in some["state"].items():
+            assert torch.equal(v[d], want["state"][k][d]), (d, k)
 
 
 def test_empty_pool_refuses_and_drain_drops_pages():

@@ -64,3 +64,16 @@ def test_split_sizes_identical(seed):
     lba = int(rng.integers(10, 10**6))
     assert port.split_sizes(lba, fracs) == ref.split_sizes(lba, fracs)
     assert sum(port.split_sizes(lba, fracs)) == lba
+
+
+@pytest.mark.parametrize("name", GENERATORS)
+def test_phase_param_arrays_identical(name):
+    """The fleet's padded phase parameters equal the JAX package's, padded
+    or not."""
+    for pad in ({}, {"g_max": 6, "p_max": 3}):
+        got = port.phase_param_arrays(_phases(port, name), **pad)
+        want = ref.phase_param_arrays(_phases(ref, name), **pad)
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(got[k], v, err_msg=k)

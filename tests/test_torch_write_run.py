@@ -23,7 +23,7 @@ from repro.core import ssd as ref_ssd
 from repro.core.ssd import Geometry as RefGeometry
 from repro_torch import convert
 from repro_torch.core import managers, simulator, workloads
-from repro_torch.core.simulator import _add, _get, _when
+from repro_torch.core.simulator import _add, _gat, _get
 from repro_torch.core.ssd import Geometry
 from repro_torch.kernels.write_path.ops import apply_trim_, apply_write_
 from repro_torch.kernels.write_run import kernel as wr_kernel
@@ -76,7 +76,7 @@ def _run_args(ctx, st, policy, lbas, ops, j, w):
             ops.astype(np.uint8))[None],
         start=start, stop=torch.full((1, 3), -1, dtype=torch.int64),
         state={k: getattr(st, k)[None] for k in wr_kernel.STATE_FIELDS},
-        policy={k: policy[k][None] for k in (
+        policy={k: policy[k] for k in (
             "page_rate", "fdp_rate", "page_group0") if k in policy},
         app=torch.full((1, n), -1, dtype=torch.int32),
         mig=torch.full((1, n), -1, dtype=torch.int32),
@@ -107,7 +107,8 @@ def _on_to_a_run(ctx, st, policy, lbas, ops, longer_than):
             return j, w, s
         args = _run_args(ctx, st, policy, lbas, ops, j, w)
         wr_ops.write_run_(**args, **_mode(ctx))
-        simulator._split_write(ctx, st, torch.tensor(lbas[s]), w_s, policy)
+        simulator._split_write(ctx, st.batch, torch.tensor([lbas[s]]),
+                               (w_s + 1) % ctx.h == 0, policy)
         j, w = s + 1, w_s + 1
 
 
@@ -116,7 +117,8 @@ def _trim_page(ctx, st, lba):
     ``apply_trim`` (unmap, clear the valid bit), ``trim_dead`` and
     ``n_trim``; a re-trim of an unmapped page changes nothing but
     ``n_trim``."""
-    _, old_pm = simulator._invalidate_counts(ctx, st, lba)
+    _, old_pm = simulator._invalidate_counts(ctx, st.batch, lba[None])
+    old_pm = old_pm[0]
     row = torch.stack([lba.to(torch.int32), old_pm,
                        torch.ones((), dtype=torch.int32)])[None]
     apply_trim_(row, st.page_map[None], st.valid[None])
@@ -133,23 +135,26 @@ def _step_write(ctx, st, lba, w, policy):
     slot, set the new one, repoint the map) and the counter updates.
     Returns whether it took the heavy path."""
     b = ctx.geom.pages_per_block
-    g, old_pm = simulator._invalidate_counts(ctx, st, lba)
+    bst, lba1 = st.batch, lba[None]  # the drive as a batch of one
+    g, old_pm = simulator._invalidate_counts(ctx, bst, lba1)
     if ctx.with_trim:
-        g = simulator._resolve_group(st, g, old_pm >= 0, lba,
+        g = simulator._resolve_group(bst, g, old_pm >= 0, lba1,
                                      policy["page_group0"])
     if ctx.mcfg.td_mode != "static":
         old_g = g
-        g = simulator._target_group_app(ctx, st, lba, old_g, policy)
-        g = torch.where(_get(st.grp_active, g), g, old_g)
+        g = simulator._target_group_app(ctx, bst, lba1, old_g, policy)
+        g = torch.where(_gat(bst.grp_active, g), g, old_g)
+    g, old_pm = g[0], old_pm[0]
     blk = _get(st.active_blk, g)
     blk_c = blk.clamp(min=0).long()
     slot = _get(st.fill, blk_c)
     may = (blk < 0) | (slot >= b) | (st.free_blocks < 2)
     if ctx.mcfg.movement_ops:
         may = may | (st.grp_surplus.max() >= 1)
-    if (w + 1) % ctx.h == 0 or _when(may):
-        simulator._clear_valid(ctx, st, old_pm)
-        simulator._step_tail(ctx, st, lba, w, g, policy)
+    if (w + 1) % ctx.h == 0 or bool(may):
+        simulator._clear_valid(ctx, bst, old_pm[None])
+        simulator._step_tail(ctx, bst, lba1, (w + 1) % ctx.h == 0, g[None],
+                             policy)
         return True
     row = torch.stack([lba.to(torch.int32), old_pm,
                        (blk_c * b + slot).to(torch.int32),
@@ -211,7 +216,8 @@ def test_run_equals_stepping_event_by_event(td_mode, with_trim,
         heavy, rotated = _step(ctx, step_st, policy, lbas[s], None, w)
         assert heavy or rotated, f"event {s} stopped the run for nothing"
         assert wr_kernel.STOP_WHY[why] == ("heavy" if heavy else "rotation")
-        simulator._split_write(ctx, run_st, torch.tensor(lbas[s]), w, policy)
+        simulator._split_write(ctx, run_st.batch, torch.tensor([lbas[s]]),
+                               (w + 1) % ctx.h == 0, policy)
         _assert_same_state(run_st, step_st, f"host step of event {s}")
         j, w = s + 1, w + 1
     assert len(runs) > 3 and max(runs) > 3, runs
@@ -235,9 +241,9 @@ def test_run_equals_the_jax_run():
     ref_st = ref_ssd.SimState(**{k: jnp.asarray(v) for k, v in st_np.items()})
     end, trace = ref_simulator.run(
         ref_ctx, ref_st, lbas[j:s], ops=ops[j:s],
-        page_group0=policy["page_group0"].numpy(),
-        page_rate=policy["page_rate"].numpy(),
-        fdp_rate=policy["fdp_rate"].numpy())
+        page_group0=policy["page_group0"][0].numpy(),
+        page_rate=policy["page_rate"][0].numpy(),
+        fdp_rate=policy["fdp_rate"][0].numpy())
     np.testing.assert_array_equal(args["app"][0, j:s].numpy(),
                                   np.asarray(trace["app"]))
     np.testing.assert_array_equal(args["mig"][0, j:s].numpy(),
@@ -291,7 +297,7 @@ def test_segment_of_fast_writes_costs_one_read():
         _step(ctx, stepped, policy, lba, None, int(stepped.n_app))
     before = simulator.host_syncs
     st, trace = simulator.run(ctx, st, lbas, page_rate=policy[
-        "page_rate"].numpy(), device="cpu")
+        "page_rate"][0].numpy(), device="cpu")
     assert simulator.host_syncs - before == 1 == trace["host_syncs"]
     _assert_same_state(st, stepped, "fast segment")
 
