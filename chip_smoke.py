@@ -70,10 +70,11 @@ Phases, one JSON line each; any failed check exits non-zero:
               must equal full_width's run, drives 0, 31 and 63 of D = 64
               their single-drive card runs; the device sampler at D = 64
               (every drive's invariants, mean WA within 2% of the numpy
-              fleet's); a mixed fleet of 8 drives of every sub-batch kind
+              fleet's); a mixed fleet of 11 drives of every sub-batch kind
               (static, a two-phase drive, fdp, single_group, bloom with
-              §5.2, TRIM op streams) at --fleet-mix-events on the card and
-              the CPU, identical;
+              §5.2, TRIM op streams; the fdp and both bloom sub-batches of
+              two drives, so their masked tails run) at --fleet-mix-events
+              on the card and the CPU, identical;
   serve_full_width  the Wolf-KV serving engine on internlm2-1.8b at its
               full published width in bf16 (random weights from --seed): 48
               requests of 256 prompt tokens and 256 new ones, policies
@@ -98,7 +99,9 @@ Phases, one JSON line each; any failed check exits non-zero:
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-before printing any result.
+before printing any result. With --phases it runs only the phases named
+and ends with ``{"partial": [...]}`` instead: no kernel summary and no ok
+line, since a partial run holds no kernel against its plain version.
 """
 
 from __future__ import annotations
@@ -1553,8 +1556,9 @@ def phase_fleet(torch, args, card):
         del res
         torch.cuda.empty_cache()
 
-    # a mixed fleet of 8: static (two seeds), a two-phase static drive,
-    # fdp, single_group, bloom with §5.2, and two TRIM op streams
+    # a mixed fleet of 11: static (two seeds), a two-phase static drive,
+    # fdp (two seeds), single_group, bloom with §5.2 on writes and on the
+    # churn op stream (two seeds each), and a trimmed static drive
     mgeom = Geometry(**FLEET_MIX_GEOM)
     lba, n = mgeom.lba_pages, args.fleet_mix_events
     specs = [
@@ -1573,6 +1577,12 @@ def phase_fleet(torch, args, card):
                         (workloads.tpcc_churn(lba, n),), 7),
         fleet.DriveSpec(managers.wolf_trim_aware(), (workloads.trimmed(
             workloads.two_modal(lba, n), 0.2),), 8),
+        fleet.DriveSpec(managers.fdp(), tuple(workloads.swap_phases(
+            lba, n // 2)), 9),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_like(lba, n),), 10),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_churn(lba, n),), 11),
     ]
     zero_counts()
     torch.cuda.synchronize()
@@ -1583,6 +1593,10 @@ def phase_fleet(torch, args, card):
     launches = read_launches()
     for name in ("write_run", "gc_one", "compact_slots"):
         check(launches[name] > 0, f"fleet mixed: no {name} launch")
+    # static 3, fdp 2, bloom 2 and 2, single_group 1, trimmed static 1
+    check(sorted(m["drives"] for m in card_res.exec_meta)
+          == [1, 1, 2, 2, 2, 3],
+          f"fleet mixed: sub-batches {card_res.exec_meta}")
     t0 = time.perf_counter()
     cpu_res = fleet.simulate_fleet(mgeom, specs, sampler="numpy",
                                    device="cpu")
@@ -1990,12 +2004,9 @@ def main() -> None:
         "dense_vs_paged": timed("dense_vs_paged", phase_dense_vs_paged, card),
     }
     timed("profile", phase_profile, card)
-    if args.phases is not None:  # a partial run: no kernel summary
+    if args.phases is not None:  # a partial run: no summary, no ok line
         print(nvidia_smi(), flush=True)
-        emit({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        }, "phases": args.phases, "phase_s": seconds})
+        emit({"partial": args.phases, "phase_s": seconds})
         return
 
     replaces = {

@@ -43,10 +43,10 @@ def fsum(x: torch.Tensor) -> torch.Tensor:
     counts (``ceil`` in the simulator's §5.5 step). ``torch.sum`` uses
     another association on each device; this order is the same on all.
     """
-    out = x[..., 0]
-    for i in range(1, x.shape[-1]):
-        out = out + x[..., i]
-    return out
+    first, *rest = x.unbind(-1)
+    for v in rest:
+        first = first + v
+    return first
 
 
 # ---------------------------------------------------------------------------

@@ -381,7 +381,7 @@ def simulate_fleet(
         idx = [i for i, s in enumerate(specs) if key(s) == part]
         sub = [specs[i] for i in idx]
         with_trim = part[4]
-        st, ctx, policy, rates = _build(geom, sub, part, init_p_from_phase,
+        st, ctx, policy, rates = _build(geom, sub, init_p_from_phase,
                                         trace_every, with_trim, device)
         lbas, ops = _streams(sub, geom, n_total, sampler=sampler,
                              with_trim=with_trim, device=device)
@@ -406,11 +406,9 @@ def simulate_fleet(
     )
 
 
-def _build(geom, sub, part, init_p_from_phase, trace_every, with_trim,
-           device):
+def _build(geom, sub, init_p_from_phase, trace_every, with_trim, device):
     """The sub-batch's stacked state, context, stacked policy, and each
     drive's page rates per phase ([P, LBA] numpy)."""
-    td_mode = part[0]
     g_max = max(s.mcfg.max_groups for s in sub)
     built = {}  # drives alike but for their seed share one build
     states, policies, rates = [], [], []
@@ -421,7 +419,7 @@ def _build(geom, sub, part, init_p_from_phase, trace_every, with_trim,
             st, n_groups, assumed_p, fdp_rate, page_rates, pg0 = build_drive(
                 geom, s.mcfg, list(s.phases),
                 init_p_from_phase=init_p_from_phase, g_max=g_max,
-                use_bloom=td_mode == "bloom", device=device)
+                device=device)
             ctx_d = SimContext(
                 geom, dataclasses.replace(s.mcfg, max_groups=g_max),
                 n_groups, with_trim=with_trim)

@@ -128,15 +128,13 @@ def build_drive(
     *,
     init_p_from_phase: bool = True,
     g_max: int | None = None,
-    use_bloom: bool | None = None,
     device="cuda",
 ):
     """Pre-conditioned drive state on ``device`` for a phase sequence.
 
     ``g_max`` pads the per-group arrays beyond ``mcfg.max_groups`` so that
     drives with different group caps share one batch's shapes (the bloom
-    filter's width scales with 1/``g_max`` then); ``use_bloom`` forces the
-    bloom filter pair's sizing (default: the drive's own detector).
+    filter's width scales with 1/``g_max`` then).
 
     Returns (st, n_groups, assumed_p [G], fdp_rate [G], page_rates [P, LBA]
     — the true per-page update rate of every phase, the FDP detector's
@@ -150,15 +148,14 @@ def build_drive(
     if g_max is not None and g_max != mcfg.max_groups:
         mcfg = dataclasses.replace(mcfg, max_groups=g_max)
     g_max = mcfg.max_groups
-    if use_bloom is None:
-        use_bloom = mcfg.td_mode == "bloom"
     page_group = (
         np.zeros(geom.lba_pages, np.int32)
         if n_groups == 1
         else first.page_group()
     )
     st = init_state(
-        geom, mcfg, page_group, n_groups, use_bloom=use_bloom, device=device,
+        geom, mcfg, page_group, n_groups,
+        use_bloom=mcfg.td_mode == "bloom", device=device,
     )
     if init_p_from_phase and n_groups > 1:
         p0 = np.zeros(g_max, np.float32)

@@ -244,9 +244,21 @@ def _drives(n: int, device) -> torch.Tensor:
     return _made[key]
 
 
+def _col(i: torch.Tensor) -> torch.Tensor:
+    """A [D] index as the [D, 1] int64 column gather and scatter take (the
+    dtype tested on the host: a conversion call costs a dispatch even when
+    it returns its input)."""
+    return (i if i.dtype == torch.int64 else i.long()).unsqueeze(1)
+
+
+def _vals(v: torch.Tensor, dtype) -> torch.Tensor:
+    """[D] values as the [D, 1] column of ``dtype`` a scatter takes."""
+    return (v if v.dtype == dtype else v.to(dtype)).unsqueeze(1)
+
+
 def _gat(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``t[d, i[d]]`` for each drive d of a [D, N] tensor: [D], a copy."""
-    return t.gather(1, i.long().unsqueeze(1)).squeeze(1)
+    return t.gather(1, _col(i)).squeeze(1)
 
 
 def _sca(t: torch.Tensor, i: torch.Tensor, v, on=None) -> None:
@@ -254,18 +266,18 @@ def _sca(t: torch.Tensor, i: torch.Tensor, v, on=None) -> None:
     drive when None). A Python scalar goes to the kernel as an argument:
     a scalar made into a CUDA tensor would be a host→device copy, which
     waits for the stream."""
-    idx = i.long().unsqueeze(1)
+    idx = _col(i)
     if on is not None:
-        v = torch.where(on, v, _gat(t, i))
+        v = torch.where(on, v, t.gather(1, idx).squeeze(1))
     if isinstance(v, torch.Tensor):
-        t.scatter_(1, idx, v.to(t.dtype).unsqueeze(1))
+        t.scatter_(1, idx, _vals(v, t.dtype))
     else:
         t.scatter_(1, idx, v)
 
 
 def _acc(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor) -> None:
     """``t[d, i[d]] += v[d]`` in place (a drive left out adds 0)."""
-    t.scatter_add_(1, i.long().unsqueeze(1), v.to(t.dtype).unsqueeze(1))
+    t.scatter_add_(1, _col(i), _vals(v, t.dtype))
 
 
 def _row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -1079,7 +1091,7 @@ def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
     mode = dict(h=h, trace_every=e, td_mode=ctx.mcfg.td_mode,
                 movement_ops=ctx.mcfg.movement_ops,
                 bloom_rotate_min_writes=ctx.mcfg.bloom_rotate_min_writes)
-    w = np.asarray(w0, np.int64).reshape(n_drives)
+    w = np.array(w0, np.int64).reshape(n_drives)  # a copy: updated here
     start = torch.zeros((n_drives, 2), dtype=torch.int64, device=dev)
     if n_drives == 1:
         start[:, 1] = int(w[0])
@@ -1087,23 +1099,24 @@ def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
         start[:, 1] = torch.as_tensor(w, device=dev)
     stop = torch.empty((n_drives, 3), dtype=torch.int64, device=dev)
     j = np.zeros(n_drives, np.int64)
+    writes_total = writes_before[:, n]
     while True:
         write_run_(lbas, ops_dev, start, stop, st.drive_axis, run_policy,
                    app, mig, **mode)
         rounds += 1
-        if (writes_before[:, n] == writes_before[rows, j]).all():
+        writes_j = writes_before[rows, j]
+        if (writes_j == writes_total).all():
             break  # TRIMs alone: every run went to its end
         s, w_s, why = _read(stop).T
-        w = w + writes_before[rows, s] - writes_before[rows, j]
+        w += writes_before[rows, s] - writes_j
         if (w_s != w).any():
             raise RuntimeError(f"write clock: device {w_s}, host {w}")
         heavy = s < n
         if not heavy.any():
             break
         at_boundary = heavy & ((w + 1) % h == 0)
-        other = heavy & ~at_boundary
-        interval = not other.any()
-        act = at_boundary if interval else other
+        interval = bool((at_boundary == heavy).all())
+        act = at_boundary if interval else heavy ^ at_boundary
         interval_batches += interval
         for k in why[act].tolist():
             run_stops[STOP_WHY[k]] += 1
@@ -1114,10 +1127,7 @@ def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
             at_dev = (stop[:, 1] + 1) % h == 0
             on = on & (at_dev if interval else ~at_dev)
         at = stop[:, 0]
-        if act.all() and (s == s[0]).all():  # one event: a view of it
-            lba = lbas[:, int(s[0])]
-        else:
-            lba = lbas.gather(1, at.clamp(max=n - 1)[:, None])[:, 0]
+        lba = lbas.gather(1, at.clamp(max=n - 1)[:, None])[:, 0]
         _split_write(ctx, st, lba, interval, policy, on)
         # the stopped events' trace entries, where (s + 1) % e == 0 (their
         # column is then s // e)
@@ -1130,12 +1140,10 @@ def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
                 m = _and((at + 1) % e == 0, on)
             _sca(app, col, st.n_app, m)
             _sca(mig, col, st.n_mig, m)
-        j = np.where(act, s + 1, s)
-        w = np.where(act, w + 1, w)
-        if on is None:  # (s + 1, w + 1)
-            torch.add(stop[:, :2], 1, out=start)
-        else:
-            torch.add(stop[:, :2], on[:, None].to(torch.int64), out=start)
+        j = s + act
+        w += act
+        # (s + 1, w + 1) where the drive acted
+        torch.add(stop[:, :2], 1 if on is None else on[:, None], out=start)
     return app, mig
 
 
