@@ -36,8 +36,12 @@ Phases, one JSON line each; any failed check exits non-zero:
               the emergency valve, a movement operation), each launch from a
               fresh copy of the state and timed alone, queued and unqueued,
               exact against gc_one_ref, and at D = 64 with every odd
-              drive disabled (a fleet round's mask); gc_compact on move
-              lists whose
+              drive disabled (a fleet round's mask); gc_one with the
+              fault hook (a decided GC whose erase may fail and retire the
+              block) at D = 1 and 64 from the same state, and write_run
+              with the halt guard at D = 64 with every third drive
+              degraded, each exact against its plain version; gc_compact
+              on move lists whose
               sources overlap the destinations (two launches) and on
               disjoint ones (one);
   equiv_small six preset/workload pairs at Geometry(4, 32, 8) on the card
@@ -60,6 +64,12 @@ Phases, one JSON line each; any failed check exits non-zero:
               every kernel must have been launched, compact_slots once a
               (demoting) drain, and at the default depth and seed the host
               syncs must be 5,367;
+  full_width_endurance  the same drive under wolf_endurance with a 5%
+              erase failure floor, no retry and 32 spares (ENDURANCE) on
+              full_width's stream, card then CPU, counts set to 0 just
+              before the card run: traces and state must agree, blocks
+              retire (gc_one's fault hook) and the drive degrades within
+              the run, its later writes halted (write_run's halt guard);
   fleet       D Table-2 drives in lock-step (wolf on two_modal, seeds
               0..D-1, numpy streams, --writes each) for each D of
               --fleet-drives through fleet.simulate_fleet, counts set to 0
@@ -70,11 +80,19 @@ Phases, one JSON line each; any failed check exits non-zero:
               must equal full_width's run, drives 0, 31 and 63 of D = 64
               their single-drive card runs; the device sampler at D = 64
               (every drive's invariants, mean WA within 2% of the numpy
-              fleet's); a mixed fleet of 11 drives of every sub-batch kind
+              fleet's); a mixed fleet of 14 drives of every sub-batch kind
               (static, a two-phase drive, fdp, single_group, bloom with
               §5.2, TRIM op streams; the fdp and both bloom sub-batches of
-              two drives, so their masked tails run) at --fleet-mix-events
-              on the card and the CPU, identical;
+              several drives, so their masked tails run; two faulty fdp
+              drives and a faulty bloom drive, so the fault hook after the
+              demoting drain runs) at --fleet-mix-events on the card and
+              the CPU, identical;
+  fleet_endurance  64 drives of full_width_endurance's configuration, fault
+              seed d and stream seed --seed + d, in lock-step, counts set
+              to 0 just before: drive-writes/s, rounds, each drive's time
+              to degrade and the survival fraction at four points; drive 0
+              must equal full_width_endurance's run, drives 31 and 63
+              their runs alone on the card;
   serve_full_width  the Wolf-KV serving engine on internlm2-1.8b at its
               full published width in bf16 (random weights from --seed): 48
               requests of 256 prompt tokens and 256 new ones, policies
@@ -743,6 +761,31 @@ def run_bytes(inputs, after, stop, mode) -> int:
     return nbytes + d * per_drive
 
 
+def time_launches(torch, args, fresh, launch, plain, plain_iters):
+    """Median times of ``launch`` (unqueued and queued behind a sleep of
+    the card) and of ``plain``, each call on its own ``fresh()`` copy of
+    the inputs, timed alone with CUDA events."""
+    times = {"kernel_ms": [], "kernel_ms_queued": [], "plain_ms": []}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(max(3, args.iters // 50)):
+        calls = [("kernel_ms", launch), ("kernel_ms_queued", launch)]
+        if i < plain_iters:
+            calls.append(("plain_ms", plain))
+        for key, fn in calls:
+            run = fresh()
+            torch.cuda.synchronize()
+            if key == "kernel_ms_queued":  # ~0.5 ms at ~2 GHz
+                torch.cuda._sleep(1_000_000)
+            start.record()
+            fn(run)
+            end.record()
+            end.synchronize()
+            times[key].append(start.elapsed_time(end))
+    return {**{k: float(np.median(v)) for k, v in times.items()},
+            "timed_launches": len(times["kernel_ms"])}
+
+
 def run_kernels(torch, args, card):
     """write_run at D = 1 and 64 in each path's configuration: exact
     against write_run_ref on the same inputs (stop, trace, every state
@@ -769,30 +812,13 @@ def run_kernels(torch, args, card):
             per_drive = (got["stop"][:, 0] - inputs["start"][:, 0]).cpu()
             done = int(per_drive.sum())
             check(done > 0, f"write_run {case} D={d}: no event landed")
-            times = {"kernel_ms": [], "kernel_ms_queued": [], "plain_ms": []}
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            for i in range(max(3, args.iters // 50)):
-                for key in ("kernel_ms", "kernel_ms_queued"):
-                    run = run_fresh(torch, inputs, d)
-                    torch.cuda.synchronize()
-                    if key == "kernel_ms_queued":  # ~0.5 ms at ~2 GHz
-                        torch.cuda._sleep(1_000_000)
-                    start.record()
-                    wr_kernel.write_run_cuda(**run, **mode)
-                    end.record()
-                    end.synchronize()
-                    times[key].append(start.elapsed_time(end))
-                if i < 3 - (d > 1):  # the plain version: a host read per
-                    run = run_fresh(torch, inputs, d)  # element it reads
-                    torch.cuda.synchronize()
-                    start.record()
-                    write_run_ref(**run, **mode)
-                    end.record()
-                    end.synchronize()
-                    times["plain_ms"].append(start.elapsed_time(end))
+            # the plain version reads each element it reads on the host:
+            # three timed launches at D = 1, two at 64
+            ms = time_launches(
+                torch, args, lambda: run_fresh(torch, inputs, d),
+                lambda run: wr_kernel.write_run_cuda(**run, **mode),
+                lambda run: write_run_ref(**run, **mode), 3 - (d > 1))
             nbytes = run_bytes(inputs, got["state"], got["stop"], mode)
-            ms = {k: float(np.median(v)) for k, v in times.items()}
             line = {
                 "phase": "kernels", "name": "write_run", "case": case,
                 "drives": d, "td_mode": mode["td_mode"],
@@ -800,8 +826,7 @@ def run_kernels(torch, args, card):
                 "warm_events": args.run_warm, "segment": RUN_EVENTS,
                 "equal": True, "max_abs_err": 0,
                 "events_per_launch": done,
-                "longest_run": int(per_drive.max()),
-                **ms, "timed_launches": len(times["kernel_ms"]),
+                "longest_run": int(per_drive.max()), **ms,
                 # the card's own time over the events it landed, and over
                 # the longest drive's chain of dependent events
                 "us_per_event": 1e3 * ms["kernel_ms_queued"] / done,
@@ -881,7 +906,7 @@ def gc_one_bytes(before, after, out, inputs, mode) -> int:
                    "stamp", "trim_dead", "active_blk", "grp_surplus")
     nbytes = 0
     for k, v in before.items():
-        changed = int((after[k] != v).sum())
+        changed = int((signed(after[k]) != signed(v)).sum())
         nbytes += changed * v.element_size() * (1 if k in overwritten else 2)
     b = before["slot_lba"].shape[-1]
     nbytes += int(out[:, 2].sum()) * b * 5  # the victims' slots
@@ -919,31 +944,12 @@ def gc_one_kernels(torch, args, card):
             decided = int(got["out"][:, 2].sum())
             check(mode == "movement" or decided == d,
                   f"gc_one {mode} D={d}: {decided} of {d} GCs decided")
-            times = {"kernel_ms": [], "kernel_ms_queued": [], "plain_ms": []}
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            for i in range(max(3, args.iters // 50)):
-                for key in ("kernel_ms", "kernel_ms_queued"):
-                    run = gc_one_fresh(torch, inputs)
-                    torch.cuda.synchronize()
-                    if key == "kernel_ms_queued":  # ~0.5 ms at ~2 GHz
-                        torch.cuda._sleep(1_000_000)
-                    start.record()
-                    gc_one_kernel.gc_one_cuda(**run, **kw)
-                    end.record()
-                    end.synchronize()
-                    times[key].append(start.elapsed_time(end))
-                if i < 3 - (d > 1):  # the plain version: host reads
-                    run = gc_one_fresh(torch, inputs)
-                    torch.cuda.synchronize()
-                    start.record()
-                    gc_one_ref(**run, **kw)
-                    end.record()
-                    end.synchronize()
-                    times["plain_ms"].append(start.elapsed_time(end))
+            ms = time_launches(
+                torch, args, lambda: gc_one_fresh(torch, inputs),
+                lambda run: gc_one_kernel.gc_one_cuda(**run, **kw),
+                lambda run: gc_one_ref(**run, **kw), 3 - (d > 1))
             nbytes = gc_one_bytes(inputs["state"], got["state"], got["out"],
                                   inputs, mode)
-            ms = {k: float(np.median(v)) for k, v in times.items()}
             line = {
                 "phase": "kernels", "name": "gc_one", "case": "full_width",
                 "mode": mode, "drives": d, "td_mode": kw["td_mode"],
@@ -951,7 +957,6 @@ def gc_one_kernels(torch, args, card):
                 "pages_moved": int((got["state"]["n_mig"]
                                     - inputs["state"]["n_mig"]).sum()),
                 "equal": True, "max_abs_err": 0, **ms,
-                "timed_launches": len(times["kernel_ms"]),
                 "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes", "library_ms": None, "card": card,
             }
@@ -987,28 +992,10 @@ def gc_one_masked(torch, args, card):
           "gc_one masked: a disabled drive's out is not (-1, -1, 0)")
     decided = int(got["out"][:, 2].sum())
     check(decided == d // 2, f"gc_one masked: {decided} of {d // 2} decided")
-    times = {"kernel_ms": [], "kernel_ms_queued": [], "plain_ms": []}
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for i in range(max(3, args.iters // 50)):
-        for key in ("kernel_ms", "kernel_ms_queued"):
-            run = gc_one_fresh(torch, inputs)
-            torch.cuda.synchronize()
-            if key == "kernel_ms_queued":
-                torch.cuda._sleep(1_000_000)
-            start.record()
-            gc_one_kernel.gc_one_cuda(**run, **kw)
-            end.record()
-            end.synchronize()
-            times[key].append(start.elapsed_time(end))
-        if i < 2:
-            run = gc_one_fresh(torch, inputs)
-            torch.cuda.synchronize()
-            start.record()
-            gc_one_ref(**run, **kw)
-            end.record()
-            end.synchronize()
-            times["plain_ms"].append(start.elapsed_time(end))
+    ms = time_launches(
+        torch, args, lambda: gc_one_fresh(torch, inputs),
+        lambda run: gc_one_kernel.gc_one_cuda(**run, **kw),
+        lambda run: gc_one_ref(**run, **kw), 2)
     on = inputs["enable"]
     # the enabled drives' bytes, as gc_one_bytes counts them, and one
     # enable byte and one out row for each disabled drive
@@ -1020,9 +1007,7 @@ def gc_one_masked(torch, args, card):
         "phase": "kernels", "name": "gc_one", "case": "full_width",
         "mode": "gc", "drives": d, "enabled": d // 2,
         "td_mode": kw["td_mode"], "decided": decided,
-        "equal": True, "max_abs_err": 0,
-        **{k: float(np.median(v)) for k, v in times.items()},
-        "timed_launches": len(times["kernel_ms"]), "bytes": nbytes,
+        "equal": True, "max_abs_err": 0, **ms, "bytes": nbytes,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "card": card,
     }
@@ -1030,6 +1015,188 @@ def gc_one_masked(torch, args, card):
     del inputs, got, want
     torch.cuda.empty_cache()
     return line
+
+
+def signed(t):
+    """``t`` with a uint32 tensor viewed as int32 (a CUDA build may lack
+    comparisons of uint32), any other as it is."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def same_state(a: dict, b: dict) -> list:
+    """The fields of two state mappings that differ."""
+    import torch
+
+    return [k for k, v in b.items()
+            if not torch.equal(signed(a[k]), signed(v))]
+
+
+def gc_one_fault_inputs(torch, args, d):
+    """gc_one's arguments in mode "gc" from full_width's state (each
+    drive's group's open block full and over budget, so each GC drains),
+    with the fault hook's state and a fault policy that retires: drive 0
+    (the only one at D = 1) worn out (endurance limit 0, so the worn rate
+    1.0 fails every attempt) with no spare left, so it retires and
+    degrades; across 64 drives base rates 0, 0.3, 0.6 and 1.0, every
+    third drive without spares, every fifth already degraded, seeds and
+    draw counters spread to the top of uint32, and retries 1."""
+    from repro_torch.kernels.gc_one.kernel import FAULT_FIELDS
+
+    inputs, kw = gc_one_inputs(torch, args, "gc", d)
+    _, st, _, _ = warm_drive(args, "full_width")
+    i = torch.arange(d, device="cuda")
+    state = inputs["state"]
+    for k in FAULT_FIELDS:
+        v = getattr(st, k)
+        state[k] = (v[None] if v.dim() else v.view(1)).repeat(
+            d, *[1] * v.dim()).contiguous()
+    state["spares_left"].copy_(torch.where(i % 3 == 0, 0, 5).int())
+    state["drive_status"].copy_(((i % 5 == 4)).int())
+    state["degraded_at"].copy_(torch.where(i % 5 == 4, 7, -1).int())
+    state["fault_draws"].view(torch.int32).copy_(
+        (-1 - 977 * i).int())  # 2**32 - 1 - 977 i as uint32
+    rates = torch.tensor([0.0, 0.3, 0.6, 1.0], device="cuda")
+    fault_policy = {
+        "fault_rate": torch.where(i == 0, 0.0, rates[i % 4]).float(),
+        "fault_rate_worn": torch.ones(d, device="cuda"),
+        "endurance_limit": torch.where(i % 7 == 0, 0, 2**31 - 1).int(),
+        "fault_seed": (i * 2654435761) % 2**32,
+    }
+    inputs["fault_policy"] = fault_policy
+    return inputs, {**kw, "erase_max_retries": 1}
+
+
+def gc_one_faults(torch, args, card):
+    """gc_one in mode "gc" with the fault hook at D = 1 and 64
+    (:func:`gc_one_fault_inputs`): exact against gc_one_ref, blocks
+    retired (and at D = 64 some erases kept), the drives without spares
+    degraded; times queued and unqueued."""
+    from repro_torch.kernels.gc_one import kernel as gc_one_kernel
+    from repro_torch.kernels.gc_one.ref import gc_one_ref
+
+    results = {}
+    for d in (1, 64):
+        inputs, kw = gc_one_fault_inputs(torch, args, d)
+        got, want = gc_one_fresh(torch, inputs), gc_one_fresh(torch, inputs)
+        gc_one_kernel.gc_one_cuda(**got, **kw)
+        gc_one_ref(**want, **kw)
+        torch.cuda.synchronize()
+        bad = ["out"] if not torch.equal(got["out"], want["out"]) else []
+        bad += same_state(got["state"], want["state"])
+        check(not bad, f"gc_one faults D={d}: kernel != plain in {bad}")
+        before, after = inputs["state"], got["state"]
+        decided = int(got["out"][:, 2].sum())
+        retired = int((after["retired_blocks"]
+                       - before["retired_blocks"]).sum())
+        degraded = int((after["drive_status"]
+                        != before["drive_status"]).sum())
+        check(decided == d, f"gc_one faults D={d}: {decided} GCs decided")
+        check(retired > 0 and degraded > 0 and (d == 1 or retired < d),
+              f"gc_one faults D={d}: {retired} retired, {degraded} "
+              "degraded")
+        ms = time_launches(
+            torch, args, lambda: gc_one_fresh(torch, inputs),
+            lambda run: gc_one_kernel.gc_one_cuda(**run, **kw),
+            lambda run: gc_one_ref(**run, **kw), 3 - (d > 1))
+        # gc_one_bytes counts the fault fields the hook changed; add the
+        # per-drive policy (20 B) and the fault state it only read
+        nbytes = gc_one_bytes(before, after, got["out"], inputs, "gc") \
+            + d * (20 + 16)
+        line = {
+            "phase": "kernels", "name": "gc_one", "case": "full_width",
+            "mode": "gc", "faults": True, "drives": d,
+            "td_mode": kw["td_mode"], "decided": decided,
+            "retired": retired, "degraded": degraded,
+            "erase_max_retries": kw["erase_max_retries"],
+            "equal": True, "max_abs_err": 0, **ms, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "card": card,
+        }
+        emit(line)
+        results[("gc_one", "faults", d)] = line
+        del inputs, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def run_halted(torch, args, card):
+    """write_run with the halt guard at D = 64 in full_width's state,
+    every third drive degraded: exact against write_run_ref; each degraded
+    drive runs to the segment's end with its events halted (n_halted, the
+    write clock, a flat trace) and nothing else changed, and each live
+    drive lands what it lands without faults; times queued and
+    unqueued."""
+    from repro_torch.kernels.write_run import kernel as wr_kernel
+    from repro_torch.kernels.write_run.ref import write_run_ref
+
+    d = 64
+    inputs, mode = run_inputs(torch, args, "full_width", d)
+    halted = torch.arange(d, device="cuda") % 3 == 0
+    inputs["state"]["drive_status"] = halted.int()
+    inputs["state"]["n_halted"] = torch.full((d,), 5, dtype=torch.int32,
+                                             device="cuda")
+    fmode = {**mode, "with_faults": True}
+    got, want = run_fresh(torch, inputs, d), run_fresh(torch, inputs, d)
+    plain = run_fresh(torch, inputs, d)
+    wr_kernel.write_run_cuda(**got, **fmode)
+    write_run_ref(**want, **fmode)
+    wr_kernel.write_run_cuda(**plain, **mode)  # the same drives, no faults
+    torch.cuda.synchronize()
+    bad = [k for k in ("stop", "app", "mig")
+           if not torch.equal(got[k], want[k])]
+    bad += [k for k, v in want["state"].items()
+            if not torch.equal(got["state"][k], v)]
+    check(not bad, f"write_run halted D={d}: kernel != plain in {bad}")
+    h, live = halted.cpu(), ~halted.cpu()
+    n = RUN_EVENTS
+    stop, start = got["stop"].cpu(), inputs["start"].cpu()
+    want_stop = torch.stack([torch.full((d,), n), start[:, 1] + n,
+                             torch.zeros(d, dtype=torch.int64)], 1)
+    check(torch.equal(stop[h], want_stop[h]),
+          "write_run halted: a degraded drive did not run to the end")
+    before = inputs["state"]
+    for k, v in got["state"].items():
+        want_v = before[k] + n * (k == "n_halted")
+        check(torch.equal(v[halted], want_v[halted]),
+              f"write_run halted: a degraded drive's {k} changed")
+        if k != "n_halted":
+            check(torch.equal(v[~halted], plain["state"][k][~halted]),
+                  f"write_run halted: a live drive's {k} differs from its "
+                  "run without faults")
+    check(torch.equal(stop[live], plain["stop"].cpu()[live]),
+          "write_run halted: a live drive stopped elsewhere without faults")
+    app = got["app"][halted]
+    check(bool((app == before["n_app"][halted][:, None]).all()),
+          "write_run halted: a degraded drive's trace is not flat")
+    done = int((stop[live, 0] - start[live, 0]).sum())
+    ms = time_launches(
+        torch, args, lambda: run_fresh(torch, inputs, d),
+        lambda run: wr_kernel.write_run_cuda(**run, **fmode),
+        lambda run: write_run_ref(**run, **fmode), 2)
+    # the live drives' bytes as run_bytes counts them; per degraded drive
+    # its trace, start, stop, status, n_halted (read and written), n_app
+    # and n_mig
+    sub = {"state": {k: v[~halted] for k, v in before.items()},
+           "lbas": inputs["lbas"][~halted], "ops": None,
+           "start": inputs["start"][~halted]}
+    nbytes = run_bytes(sub, {k: v[~halted] for k, v in got["state"].items()},
+                       got["stop"][~halted], mode) + 4 * int(live.sum())
+    nbytes += int(h.sum()) * (8 * n + 16 + 24 + 4 + 8 + 8)
+    line = {
+        "phase": "kernels", "name": "write_run", "case": "full_width",
+        "faults": True, "drives": d, "degraded": int(h.sum()),
+        "td_mode": mode["td_mode"], "segment": n, "equal": True,
+        "max_abs_err": 0, "events_per_launch": done,
+        "halted_events": int(h.sum()) * n, **ms, "bytes": nbytes,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "card": card,
+    }
+    emit(line)
+    del inputs, got, want, plain
+    torch.cuda.empty_cache()
+    return {("write_run", "halted", d): line}
 
 
 # -- phases -----------------------------------------------------------------
@@ -1148,7 +1315,9 @@ def phase_kernels(torch, args, card):
         emit(line)
         results[("compact_slots", d)] = line
     results.update(run_kernels(torch, args, card))
+    results.update(run_halted(torch, args, card))
     results.update(gc_one_kernels(torch, args, card))
+    results.update(gc_one_faults(torch, args, card))
     results.update(serving_kernels(torch, args, card))
     return results
 
@@ -1402,6 +1571,164 @@ def phase_full_width_churn(torch, args, card):
     return line
 
 
+# full_width_endurance's knobs: wolf_endurance (P-E limit 40, out of reach
+# in a run of this length) with an age-independent floor that fails 5% of
+# erases, no retry (every failed erase retires its block) and 32 spares
+ENDURANCE = dict(fault_rate=0.05, erase_max_retries=0, spare_blocks=32)
+# the survival curve's points, as fractions of the run
+SURVIVAL_AT = (0.25, 0.5, 0.75, 1.0)
+
+
+def endurance_line(st) -> dict:
+    """A faulty drive's fault counters at the end of its run."""
+    return {"retired": int(st.retired_blocks),
+            "erase_failures": int(st.n_erase_fail),
+            "spares_left": int(st.spares_left),
+            "degraded_at": int(st.degraded_at),
+            "halted": int(st.n_halted), "erases": int(st.n_erase)}
+
+
+def phase_full_width_endurance(torch, args, card):
+    """The Table-2 drive under wolf_endurance with ENDURANCE's knobs on
+    full_width's stream: card then CPU, identical; blocks must retire
+    and the drive degrade within the run, so the retire hook in gc_one
+    and the halt guard in write_run both run at full width."""
+    from repro_torch.core import managers, simulator, workloads
+    from repro_torch.core.ssd import Geometry, assert_invariants
+
+    geom = Geometry(**TABLE2)
+    phase = workloads.two_modal(geom.lba_pages, args.writes, p_hot=0.9,
+                                frac_hot=0.5)
+    mcfg = managers.wolf_endurance(**ENDURANCE)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_run = managers.simulate(geom, mcfg, [phase], seed=args.seed,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    stops = dict(simulator.run_stops)
+    for name in ("write_run", "gc_one"):
+        check(launches[name] > 0,
+              f"full_width_endurance: the path never launched {name}")
+    check(launches["apply_write"] == launches["compact_slots"] == 0,
+          "full_width_endurance: a per-row kernel was launched")
+    st = card_run.state
+    assert_invariants(st, "full_width_endurance (cuda)")
+    faults = endurance_line(st)
+    check(faults["halted"] == args.writes - int(st.n_app),
+          f"full_width_endurance: {faults}")
+    if args.writes >= 100_000:  # a short run may end before any fault
+        check(faults["retired"] > 0, "full_width_endurance: nothing retired")
+        check(0 <= faults["degraded_at"] < args.writes,
+              f"full_width_endurance: not degraded within the run: {faults}")
+
+    t0 = time.perf_counter()
+    cpu_run = managers.simulate(geom, mcfg, [phase], seed=args.seed,
+                                device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    bad = same_run(torch, card_run, cpu_run)
+    check(not bad, f"full_width_endurance: cuda != cpu in {bad}")
+    check(card_run.host_syncs == cpu_run.host_syncs,
+          f"full_width_endurance: {card_run.host_syncs} host syncs on the "
+          f"card, {cpu_run.host_syncs} on the CPU")
+    line = {
+        "phase": "full_width_endurance", "manager": mcfg.name,
+        "knobs": {**ENDURANCE,
+                  "endurance_pe_limit": mcfg.endurance_pe_limit},
+        "workload": "two_modal(p_hot=0.9, frac_hot=0.5)",
+        "geometry": [TABLE2["n_luns"], TABLE2["blocks_per_lun"],
+                     TABLE2["pages_per_block"]],
+        "writes": args.writes, **faults,
+        "degraded_at_frac": faults["degraded_at"] / args.writes,
+        "identical_to_cpu": True, "invariants": True,
+        "wa_total": card_run.wa_total, "intervals": int(st.interval),
+        "seconds": seconds, "writes_per_s": args.writes / seconds,
+        "cpu_seconds": cpu_seconds, "host_syncs": card_run.host_syncs,
+        "runs": launches["write_run"], "run_stops": stops,
+        "launches": launches, "card": card,
+    }
+    emit(line)
+    _RUNS["full_width_endurance"] = card_run
+    return line
+
+
+def phase_fleet_endurance(torch, args, card):
+    """D = 64 Table-2 drives under full_width_endurance's configuration,
+    drive d with fault seed d and stream seed --seed + d, in lock-step on
+    the card: drive-writes/s, rounds, the time to degrade of each drive
+    and the fleet's survival fraction at four points of the run; drive 0
+    equals full_width_endurance's run and drives 31 and 63 their runs
+    alone on the card."""
+    from repro_torch.core import analytics, fleet, managers, simulator
+    from repro_torch.core import workloads
+    from repro_torch.core.ssd import Geometry, assert_invariants
+
+    geom, d = Geometry(**TABLE2), 64
+    phase = workloads.two_modal(geom.lba_pages, args.writes, p_hot=0.9,
+                                frac_hot=0.5)
+    specs = [fleet.DriveSpec(
+        managers.wolf_endurance(**ENDURANCE, fault_seed=i), (phase,),
+        seed=args.seed + i) for i in range(d)]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fleet.simulate_fleet(geom, specs, sampler="numpy")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    (meta,) = res.exec_meta
+    check(launches["write_run"] == meta["rounds"],
+          f"fleet_endurance: {launches['write_run']} write_run launches "
+          f"for {meta['rounds']} rounds")
+    check(launches["gc_one"] > 0, "fleet_endurance: no gc_one launch")
+    for i in (0, 31, 63):
+        assert_invariants(res.state(i), f"fleet_endurance drive {i}")
+    equal = {}
+    if "full_width_endurance" in _RUNS:
+        bad = same_run(torch, res.result(0), _RUNS["full_width_endurance"])
+        check(not bad, f"fleet_endurance drive 0 != full_width_endurance "
+              f"in {bad}")
+        equal["drive_0_full_width_endurance"] = True
+    for i in (31, 63):
+        alone = managers.simulate(geom, specs[i].mcfg, list(specs[i].phases),
+                                  seed=specs[i].seed, device="cuda")
+        bad = same_run(torch, res.result(i), alone)
+        check(not bad, f"fleet_endurance drive {i} != its run alone in {bad}")
+        equal[f"drive_{i}_alone"] = True
+    ttd = res.time_to_degraded()
+    points = [int(f * args.writes) for f in SURVIVAL_AT]
+    survival = analytics.survival_fraction(ttd, np.array(points)).tolist()
+    dead = np.sort(ttd[ttd >= 0])
+    retired = res.retired_fraction()
+    line = {
+        "phase": "fleet_endurance", "manager": "wolf-endurance",
+        "knobs": ENDURANCE, "drives": d, "writes_per_drive": args.writes,
+        "geometry": [TABLE2["n_luns"], TABLE2["blocks_per_lun"],
+                     TABLE2["pages_per_block"]],
+        "seconds": seconds, "drive_writes_per_s": d * args.writes / seconds,
+        "rounds": meta["rounds"], "interval_batches": meta["interval_batches"],
+        "host_syncs": meta["host_syncs"],
+        "degraded": int((res.drive_status() != 0).sum()),
+        "time_to_degraded": ttd.tolist(),
+        "degraded_at_min_median_max": [
+            int(dead[0]), float(np.median(dead)), int(dead[-1])]
+        if dead.size else None,
+        "survival": dict(zip(map(str, points), survival)),
+        "retired_fraction_mean": float(retired.mean()),
+        "retired_fraction_max": float(retired.max()),
+        "halted_events": int(sum(int(res.state(i).n_halted)
+                                 for i in range(d))),
+        "wa_mean": float(res.wa_total.mean()), "equal": equal,
+        "launches": launches, "card": card,
+    }
+    emit(line)
+    del res
+    torch.cuda.empty_cache()
+    return line
+
+
 # the mixed fleet: every sub-batch kind of the fleet, card against CPU
 FLEET_MIX_GEOM = dict(n_luns=8, blocks_per_lun=64, pages_per_block=64,
                       lba_pba=0.70)
@@ -1556,9 +1883,12 @@ def phase_fleet(torch, args, card):
         del res
         torch.cuda.empty_cache()
 
-    # a mixed fleet of 11: static (two seeds), a two-phase static drive,
-    # fdp (two seeds), single_group, bloom with §5.2 on writes and on the
-    # churn op stream (two seeds each), and a trimmed static drive
+    # a mixed fleet of 14: static (two seeds), a two-phase static drive,
+    # fdp (two seeds, and two faulty: one fails half its erase attempts
+    # with 8 spares, one wears out at 1 P-E cycle), single_group, bloom
+    # with §5.2 on writes (two seeds, and one failing half its attempts)
+    # and on the churn op stream (two seeds), and a trimmed static drive.
+    # The faulty drives run the fault hook after the demoting drain.
     mgeom = Geometry(**FLEET_MIX_GEOM)
     lba, n = mgeom.lba_pages, args.fleet_mix_events
     specs = [
@@ -1583,6 +1913,14 @@ def phase_fleet(torch, args, card):
                         (workloads.tpcc_like(lba, n),), 10),
         fleet.DriveSpec(managers.wolf_dynamic(),
                         (workloads.tpcc_churn(lba, n),), 11),
+        fleet.DriveSpec(managers.fdp(fault_rate=0.5, spare_blocks=8,
+                                     fault_seed=12),
+                        tuple(workloads.swap_phases(lba, n // 2)), 12),
+        fleet.DriveSpec(managers.fdp(endurance_pe_limit=1, fault_seed=13),
+                        tuple(workloads.swap_phases(lba, n // 2)), 13),
+        fleet.DriveSpec(managers.wolf_dynamic(fault_rate=0.5,
+                                              fault_seed=14),
+                        (workloads.tpcc_like(lba, n),), 14),
     ]
     zero_counts()
     torch.cuda.synchronize()
@@ -1593,9 +1931,9 @@ def phase_fleet(torch, args, card):
     launches = read_launches()
     for name in ("write_run", "gc_one", "compact_slots"):
         check(launches[name] > 0, f"fleet mixed: no {name} launch")
-    # static 3, fdp 2, bloom 2 and 2, single_group 1, trimmed static 1
+    # static 3, fdp 4, bloom 3 and 2, single_group 1, trimmed static 1
     check(sorted(m["drives"] for m in card_res.exec_meta)
-          == [1, 1, 2, 2, 2, 3],
+          == [1, 1, 2, 3, 3, 4],
           f"fleet mixed: sub-batches {card_res.exec_meta}")
     t0 = time.perf_counter()
     cpu_res = fleet.simulate_fleet(mgeom, specs, sampler="numpy",
@@ -1608,7 +1946,14 @@ def phase_fleet(torch, args, card):
         bad = same_run(torch, card_res.result(i), cpu_res.result(i))
         check(not bad, f"fleet mixed drive {i}: cuda != cpu in {bad}")
         assert_invariants(card_res.state(i), f"fleet mixed drive {i}")
+    faulty = [i for i, sp in enumerate(specs) if sp.mcfg.has_faults]
+    if n >= 20_000:  # a short run may end before any fault
+        check(all(int(card_res.state(i).retired_blocks) > 0
+                  for i in faulty),
+              "fleet mixed: a faulty drive retired nothing")
     emit({"phase": "fleet", "case": "mixed", "drives": len(specs),
+          "faulty": {specs[i].label: endurance_line(card_res.state(i))
+                     for i in faulty},
           "geometry": [mgeom.n_luns, mgeom.blocks_per_lun,
                        mgeom.pages_per_block],
           "events_per_drive": n, "sub_batches": card_res.exec_meta,
@@ -1998,7 +2343,11 @@ def main() -> None:
         "full_width": timed("full_width", phase_full_width, card),
         "full_width_churn": timed("full_width_churn", phase_full_width_churn,
                                   card),
+        "full_width_endurance": timed("full_width_endurance",
+                                      phase_full_width_endurance, card),
         "fleet": timed("fleet", phase_fleet, card),
+        "fleet_endurance": timed("fleet_endurance", phase_fleet_endurance,
+                                 card),
         "serve_full_width": timed("serve_full_width", phase_serve_full_width,
                                   card),
         "dense_vs_paged": timed("dense_vs_paged", phase_dense_vs_paged, card),
@@ -2029,9 +2378,10 @@ def main() -> None:
     # path's in the type its path runs them in (bf16 serving, its move
     # lists overlapping; the dense check's flash in fp32)
     cases = {
-        "write_run": [(c, d) for c in RUN_CASES for d in (1, 64)],
+        "write_run": [(c, d) for c in RUN_CASES for d in (1, 64)]
+        + [("halted", 64)],
         "gc_one": [(m, d) for m in GC_MODES for d in (1, 64)]
-        + [("gc_masked", 64)],
+        + [("gc_masked", 64), ("faults", 1), ("faults", 64)],
         **{n: [(d,) for d in (1, 64)]
            for n in ("apply_write", "apply_trim", "compact_slots")},
         "gc_compact": [(t, c) for t in ("bfloat16", "float32")

@@ -31,10 +31,18 @@ from a ``torch.Generator`` seeded by the drive's seed alone
 (``workloads.sample_phases_device``): the same distribution, another
 stream.
 
+Faults: the fault rates, endurance limit and seed are per-drive policy,
+not a sub-batch key: a sub-batch runs the fault layer when any of its
+drives can fail an erase, and its fault-free drives then run as they
+would alone but for ``fault_draws``. A degraded drive is an inert lane:
+``write_run`` lands each of its later events as a halted no-op to the
+segment's end, so it never stops a run, never enters a round's mask or a
+``gc_one`` enable, and no §5.1 hold waits for it. ``FleetResult`` reports
+``drive_status``, ``retired_fraction`` and ``time_to_degraded``.
+
 What the JAX package's fleet does across devices (a mesh, its device
 count, compile caches, its single-path step) has no counterpart on one
-card, and neither has its reference GC drain (``gc_impl="reference"``) or
-fault injection yet (``simulator.check_supported``).
+card, and neither has its reference GC drain (``gc_impl="reference"``).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from repro_torch.core.allocation import total_wa
 from repro_torch.core.analytics import (
     dwpd_from_lifetime,
     lifetime_host_writes,
+    retired_fraction,
     wa_vs_lifetime,
     wear_imbalance,
     wear_variance,
@@ -82,6 +91,12 @@ _SHARED_FIELDS = (
     "bloom_bits_per_page", "valve_max_tries", "bloom_rotate_min_writes",
     "erase_max_retries",
 )
+
+
+# the ManagerConfig fields that are per-drive fault policy only (the state
+# a drive starts from does not read them), at their fault-free values
+_FAULT_POLICY_KNOBS = dict(fault_rate=0.0, fault_rate_worn=1.0,
+                           endurance_pe_limit=0, fault_seed=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,6 +247,30 @@ class FleetResult:
             for i in range(len(self.specs))
         ])
 
+    # -- survival analytics (fault injection) -------------------------------
+
+    def drive_status(self) -> np.ndarray:
+        """[B] each drive's status at the end: 0 = STATUS_OK, 1 =
+        STATUS_DEGRADED (spares exhausted or pool death; the drive halted)."""
+        return np.array([int(self.state(i).drive_status)
+                         for i in range(len(self.specs))])
+
+    def retired_fraction(self) -> np.ndarray:
+        """[B] fraction of each drive's physical blocks RETIRED (0.0 for a
+        drive that cannot fail), float32 as the JAX package computes it."""
+        k = self._geom().n_blocks
+        return np.array([
+            float(retired_fraction(self.state(i).retired_blocks.cpu(), k))
+            for i in range(len(self.specs))
+        ])
+
+    def time_to_degraded(self) -> np.ndarray:
+        """[B] the application write at which each drive degraded, -1 for
+        a drive still in service at the end (``analytics.survival_fraction``
+        turns it into a survival curve)."""
+        return np.array([int(self.state(i).degraded_at)
+                         for i in range(len(self.specs))])
+
     def model_error(self, window: int = 2000, tail: int = 3,
                     pred: np.ndarray | None = None) -> np.ndarray:
         """[B] relative error of the eq. 3/5 prediction against the
@@ -283,8 +322,6 @@ def _check(geom, specs, *, sampler, gc_impl, trace_every, ops_stream):
     if ops_stream is False and any(_spec_has_trim(s) for s in specs):
         raise ValueError(
             "specs carry TRIMs: ops_stream=False is not available")
-    for s in specs:
-        simulator.check_supported(s.mcfg)
     totals = {sum(ph.n_writes for ph in s.phases) for s in specs}
     if len(totals) != 1:
         raise ValueError(f"drives must issue equal event totals: {totals}")
@@ -410,34 +447,41 @@ def _build(geom, sub, init_p_from_phase, trace_every, with_trim, device):
     """The sub-batch's stacked state, context, stacked policy, and each
     drive's page rates per phase ([P, LBA] numpy)."""
     g_max = max(s.mcfg.max_groups for s in sub)
-    built = {}  # drives alike but for their seed share one build
+    # the fault layer runs for the whole sub-batch when any drive can fail
+    with_faults = any(s.mcfg.has_faults for s in sub)
+    # drives alike but for their seed share one build of the state, and
+    # but for their fault policy too (it is no part of the state)
+    built, made = {}, {}
     states, policies, rates = [], [], []
     n_groups_max = 1
     for s in sub:
-        pre = (s.mcfg, tuple(s.phases))
+        pre = (dataclasses.replace(s.mcfg, **_FAULT_POLICY_KNOBS),
+               tuple(s.phases))
         if pre not in built:
-            st, n_groups, assumed_p, fdp_rate, page_rates, pg0 = build_drive(
+            built[pre] = build_drive(
                 geom, s.mcfg, list(s.phases),
                 init_p_from_phase=init_p_from_phase, g_max=g_max,
                 device=device)
+        st, n_groups, assumed_p, fdp_rate, page_rates, pg0 = built[pre]
+        if (s.mcfg, pre) not in made:
             ctx_d = SimContext(
                 geom, dataclasses.replace(s.mcfg, max_groups=g_max),
-                n_groups, with_trim=with_trim)
+                n_groups, with_trim=with_trim, with_faults=with_faults)
             policy = policy_from_config(
                 ctx_d, device, assumed_p=assumed_p, fdp_rate=fdp_rate,
                 page_group0=pg0 if with_trim else None)
             # the drive keeps its OWN group cap inside the padded arrays
             policy["max_groups"].fill_(s.mcfg.max_groups)
-            built[pre] = st, n_groups, policy, page_rates
-        st, n_groups, policy, page_rates = built[pre]
+            made[s.mcfg, pre] = policy
         n_groups_max = max(n_groups_max, n_groups)
         states.append(st)
-        policies.append(policy)
+        policies.append(made[s.mcfg, pre])
         rates.append(page_rates)
     stacked = stack_states(states)
     ctx = SimContext(
         geom, dataclasses.replace(sub[0].mcfg, name="fleet", max_groups=g_max),
-        n_groups_max, trace_every=trace_every, with_trim=with_trim)
+        n_groups_max, trace_every=trace_every, with_trim=with_trim,
+        with_faults=with_faults)
     return stacked, ctx, stack_policies(policies), rates
 
 

@@ -1,7 +1,7 @@
 """Block-manager presets (paper §6 comparison points) + run helpers.
 
-The counterpart of ``repro.core.managers``: every preset but the
-fault-injecting ``wolf_endurance`` (see ``simulator.check_supported``).
+The counterpart of ``repro.core.managers``: every preset, the
+fault-injecting ``wolf_endurance`` included.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core.simulator import SimContext, check_supported, run
+from repro_torch.core.simulator import SimContext, run
 from repro_torch.core.ssd import Geometry, ManagerConfig, init_state
 from repro_torch.core.workloads import Phase
 
@@ -76,6 +76,19 @@ def wolf_trim_aware(**kw) -> ManagerConfig:
     return ManagerConfig(
         name="wolf-trim-aware", alloc_mode="wolf", gc_policy="trim_aware",
         movement_ops=True, td_mode="static", **kw
+    )
+
+
+def wolf_endurance(**kw) -> ManagerConfig:
+    """Wolf on an aging drive: a block dies once its P-E count reaches
+    ``endurance_pe_limit`` (default 40; ``fault_rate_worn`` defaults to
+    1.0), retires into the spare pool and shrinks the OP the §5.5
+    allocator divides. ``fault_rate=...`` adds an age-independent
+    failure floor."""
+    return ManagerConfig(
+        name="wolf-endurance", alloc_mode="wolf", gc_policy="greedy",
+        movement_ops=True, td_mode="static",
+        endurance_pe_limit=kw.pop("endurance_pe_limit", 40), **kw
     )
 
 
@@ -179,6 +192,7 @@ def simulate(
     init_p_from_phase: bool = True,
     trace_every: int = 1,
     ops_stream: bool | None = None,
+    faults: bool | None = None,
     device="cuda",
 ) -> RunResult:
     """Run a (possibly multi-phase) workload under a manager preset on
@@ -189,8 +203,17 @@ def simulate(
     carries TRIMs; True forces it for pure-write phases too (the sampled
     events are then the same, and so is the run). Each phase's run reads
     that phase's page rates (the FDP detector's oracle input).
+
+    faults: None runs the fault layer iff ``mcfg.has_faults``; True runs
+    it for a configuration that cannot fail as well (every erase then
+    draws and none fails, so only ``fault_draws`` differs from the
+    fault-free run); False is refused for a configuration that can fail.
     """
-    check_supported(mcfg)
+    if faults is None:
+        faults = mcfg.has_faults
+    if mcfg.has_faults and not faults:
+        raise ValueError("the configuration can fail erases: faults=False "
+                         "is not available")
     has_trim = any(ph.has_trim for ph in phases)
     if ops_stream is None:
         ops_stream = has_trim
@@ -203,7 +226,7 @@ def simulate(
         device=device,
     )
     ctx = SimContext(geom, mcfg, n_groups, trace_every=trace_every,
-                     with_trim=ops_stream)
+                     with_trim=ops_stream, with_faults=faults)
     apps, migs, syncs = [], [], 0
     for phase, page_rate in zip(phases, page_rates):
         if ops_stream:

@@ -1,9 +1,9 @@
 """Event-granularity SSD simulator in PyTorch, for one drive or a batch of
 drives run in lock-step.
 
-The counterpart of ``repro.core.simulator`` without faults
-(``check_supported`` names what waits). One step is one event of an op
-stream: a WRITE of a page, or (op streams only) a TRIM of one.
+The counterpart of ``repro.core.simulator``, fault injection included.
+One step is one event of an op stream: a WRITE of a page, or (op streams
+only) a TRIM of one.
 
 A WRITE:
 
@@ -54,6 +54,17 @@ nothing to read: op codes come from numpy, and the write clock ``n_app``
 advances by one per WRITE. A round costs one read (where each drive
 stopped), and none when no drive has a WRITE left.
 
+Faults (``SimContext.with_faults``; the rates, endurance limit and seed
+are per-drive policy): every GC erase may fail, and retire its block into
+the spare pool (the JAX package's ``_erase_fault_retire``). Under the
+static detector the hook runs inside the ``gc_one`` launch; after a
+demoting drain it runs on the drive's view as device ops, with no read.
+Retired blocks leave the §5.5 OP budget. A retire that finds the spares
+or the pool exhausted degrades the drive; from its next event on every
+event is a counted no-op (``n_halted``, the JAX package's ``_halt_wrap``),
+which ``write_run`` lands to the segment's end on the device, so a
+degraded drive never stops a run and is never in a round's mask.
+
 Interval alignment: a drive that stops on the write that completes a §5.1
 interval is held (relaunched, it re-stops at once: the run kernel decides
 a write before it writes anything) while any drive still has other heavy
@@ -88,6 +99,7 @@ from repro_torch.core.ssd import (
 from repro_torch.core.workloads import OP_TRIM
 from repro_torch.kernels.gc_compact.ops import compact_slots_
 from repro_torch.kernels.gc_one.ops import gc_one_
+from repro_torch.kernels.gc_one.ref import FAULT_POLICY, erase_fault_retire
 from repro_torch.kernels.write_run.kernel import STOP_WHY
 from repro_torch.kernels.write_run.ops import write_run_
 
@@ -109,16 +121,6 @@ rounds = 0
 interval_batches = 0
 
 
-def check_supported(mcfg: ManagerConfig) -> None:
-    """Raise for a configuration this port cannot run yet."""
-    if mcfg.has_faults:
-        raise NotImplementedError(
-            "not ported yet: fault injection (the erase-fault retire hook, "
-            "the halt guard and the retired-capacity term of §5.5; "
-            "preset wolf_endurance)"
-        )
-
-
 @dataclasses.dataclass(frozen=True)
 class SimContext:
     """Static context of one run: geometry, policy, and the run's shape.
@@ -137,6 +139,10 @@ class SimContext:
     # op-stream mode: the run takes (op, lba) events, and a write that
     # re-maps a trimmed page lands in its layout group (page_group0)
     with_trim: bool = False
+    # fault injection: GC erases may fail and retire their blocks, retired
+    # capacity leaves the §5.5 budget, and a degraded drive halts. False
+    # runs the fault-free step exactly (no launch, no read of its own)
+    with_faults: bool = False
 
     @property
     def h(self) -> int:
@@ -147,11 +153,12 @@ class SimContext:
         return self.geom.n_luns * self.geom.pages_per_block
 
 
-# the policy's per-drive tensors, each with a leading drive axis
+# the policy's per-drive tensors, each with a leading drive axis (the
+# fault policy's only with faults)
 POLICY_TENSORS = (
     "gc_w", "gc_w_greedy", "h", "ewma_a", "max_groups", "assumed_p",
     "fdp_rate", "page_rate", "page_group0", "use_assumed", "alloc_closed",
-    "alloc_freq",
+    "alloc_freq", *FAULT_POLICY,
 )
 
 
@@ -163,8 +170,12 @@ def policy_from_config(ctx: SimContext, device, *, assumed_p=None,
     [1, 4], the §5.1 constants, the drive's group cap, FDP's assumption
     arrays [1, G], the oracle's per-page rates [1, LBA] and the layout
     groups [1, LBA] as device tensors (zeros where not given); the
-    allocation mode as a host tuple, with its masks."""
-    check_supported(ctx.mcfg)
+    allocation mode as a host tuple, with its masks. With faults, the
+    fault rates, the endurance limit (INT_MAX when there is none) and the
+    seed (its low 32 bits) as well."""
+    if ctx.mcfg.has_faults and not ctx.with_faults:
+        raise ValueError("the configuration can fail erases: its context "
+                         "needs with_faults=True")
     g_max, lba = ctx.mcfg.max_groups, ctx.geom.lba_pages
     mode = ctx.mcfg.alloc_mode
 
@@ -193,6 +204,16 @@ def policy_from_config(ctx: SimContext, device, *, assumed_p=None,
         "alloc_closed": one(mode in CLOSED_FORM_MODES, torch.bool),
         "alloc_freq": one(mode == "freq", torch.bool),
     }
+    if ctx.with_faults:
+        mcfg = ctx.mcfg
+        policy.update(
+            fault_rate=one(mcfg.fault_rate, torch.float32),
+            fault_rate_worn=one(mcfg.fault_rate_worn, torch.float32),
+            endurance_limit=one(mcfg.endurance_pe_limit
+                                if mcfg.endurance_pe_limit > 0 else INT_MAX,
+                                torch.int32),
+            fault_seed=one(mcfg.fault_seed & 0xFFFFFFFF, torch.int64),
+        )
     if ctx.with_trim:
         if page_group0 is None:
             raise ValueError("an op-stream run needs page_group0")
@@ -768,19 +789,26 @@ def _gc_one(ctx: SimContext, st: SimState, policy, mode: str,
     not entitled to or the pool is at reserve; "valve": where the fewest
     live pages are, greedy weights; "movement": the most block-surplus
     group), the victim, and the decision, all on the device. The static
-    detector's drain runs in the same launch, without a host read. A
+    detector's drain runs in the same launch, without a host read, and
+    with faults its erase goes through the retire hook there too. A
     detector that can demote takes the general drain here, after one read
-    of the D decisions, drive by drive."""
+    of the D decisions, drive by drive, then the hook as device ops."""
     gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
     out = torch.empty((st.n_drives, 3), dtype=torch.int64, device=st.device)
+    faults = ({k: policy[k] for k in FAULT_POLICY} if ctx.with_faults
+              else None)
+    retries = ctx.mcfg.erase_max_retries
     gc_one_(st.drive_axis, gc_w, None if g is None else g.long(), out, on,
-            mode=mode, td_mode=ctx.mcfg.td_mode,
-            gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
+            faults, mode=mode, td_mode=ctx.mcfg.td_mode,
+            gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks,
+            erase_max_retries=retries)
     if ctx.mcfg.td_mode == "static":
         return
     for d in np.flatnonzero(_read(out[:, 2] != 0)).tolist():
-        _gc_drain_bulk(ctx, st.drive(d), out[d, 0], out[d, 1],
-                       drive_policy(policy, d))
+        drive, pol = st.drive(d), drive_policy(policy, d)
+        _gc_drain_bulk(ctx, drive, out[d, 0], out[d, 1], pol)
+        if faults is not None:
+            erase_fault_retire(drive, out[d, 0], out[d, 1], pol, retries)
 
 
 # ---------------------------------------------------------------------------
@@ -820,6 +848,10 @@ def _recompute_alloc(ctx: SimContext, st: SimState, policy, on=None) -> None:
         - (mcfg.gc_reserve_blocks + 1 + n_active) * b
         - fsum(s)
     )
+    if ctx.with_faults:
+        # retired capacity leaves the OP budget (a drive that retired
+        # nothing subtracts exactly 0)
+        op_total = op_total - st.retired_blocks.to(torch.float32) * b
 
     def closed():
         return allocate_closed_form(
@@ -918,8 +950,11 @@ def _maybe_create_or_merge(ctx: SimContext, st: SimState, policy,
         ab_c = ab.clamp(min=0)
         _sca(st.state, ab_c, torch.where(_and(ab >= 0, m), CLOSED,
                                          _gat(st.state, ab_c)))
-        for arr in (st.grp_size, st.grp_live, st.grp_phys, st.grp_p,
-                    st.grp_writes):
+        merged = (st.grp_size, st.grp_live, st.grp_phys, st.grp_p,
+                  st.grp_writes)
+        if ctx.with_faults:  # RETIRED blocks keep their group label
+            merged += (st.grp_retired,)
+        for arr in merged:
             _sca(arr, g_to, _gat(arr, g_to) + _gat(arr, g_from), m)
             _sca(arr, g_from, 0, m)
         _sca(st.active_blk, g_from, -1, m)
@@ -1090,7 +1125,8 @@ def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
         "page_rate", "fdp_rate", "page_group0") if k in policy}
     mode = dict(h=h, trace_every=e, td_mode=ctx.mcfg.td_mode,
                 movement_ops=ctx.mcfg.movement_ops,
-                bloom_rotate_min_writes=ctx.mcfg.bloom_rotate_min_writes)
+                bloom_rotate_min_writes=ctx.mcfg.bloom_rotate_min_writes,
+                with_faults=ctx.with_faults)
     w = np.array(w0, np.int64).reshape(n_drives)  # a copy: updated here
     start = torch.zeros((n_drives, 2), dtype=torch.int64, device=dev)
     if n_drives == 1:

@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 FREE, OPEN, CLOSED = 0, 1, 2
-# terminal block state of the fault layer (kept for state parity; the
-# fault-free slice never enters it)
+# terminal block state of the fault layer: a block whose erase failed
+# every retry, out of circulation for good
 RETIRED = 3
 STATUS_OK, STATUS_DEGRADED = 0, 1
 INT32_MAX = 2**31 - 1
@@ -77,11 +77,10 @@ GC_WEIGHT_PRESETS = {
 class ManagerConfig:
     """Block-manager policy knobs (field for field the JAX package's).
 
-    Presets in :mod:`repro_torch.core.managers`. The simulator of this
-    package runs the static detector without dynamic groups or faults; the
-    other knobs are kept so configurations compare field for field, and
-    :func:`repro_torch.core.simulator.check_supported` rejects values it
-    cannot run yet.
+    Presets in :mod:`repro_torch.core.managers`. The fault knobs (the
+    per-erase failure rates, the P-E endurance limit, the retry budget,
+    the spare pool and the fault stream's seed) are the JAX package's;
+    :attr:`has_faults` says whether a configuration can fail an erase.
     """
 
     name: str = "wolf"

@@ -35,6 +35,20 @@
 //           lowest FREE one), seal and claim bookkeeping, page_map of the
 //           moved pages, pages dropped when no block can be claimed, the
 //           surpluses of every group, then the victim erased.
+//   faults  (with a fault policy; the JAX package's _erase_fault_retire,
+//           simulator.py:654, which its _gc_one applies to the drain's
+//           output) the erase just made may fail: one counter-based
+//           uniform u, murmur3's fmix32 over (fault_seed, fault_draws) in
+//           uint32, fails it iff u < rate and retires the block iff u <
+//           rate^(1 + retries), the power taken as lax.integer_pow takes
+//           it (square and multiply, each product rounded). rate is
+//           fault_rate, or max(fault_rate_worn, fault_rate) once the
+//           block's P-E count before the erase reaches endurance_limit. A
+//           retire undoes the erase's wear, makes the block RETIRED under
+//           g (the drain left it FREE: the pool count gives it back, and
+//           no list holds it), draws a spare, and degrades the drive
+//           (drive_status, degraded_at = n_app) when no spare was left or
+//           the pool is left empty. fault_draws advances once an erase.
 //
 // Under the FDP and bloom detectors the drain demotes pages one group
 // colder and stays on the host (simulator._gc_drain_bulk): the kernel only
@@ -66,7 +80,8 @@ constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroups = 64;
 constexpr int kMaxPages = kThreads;  // pages per block: one thread a slot
-constexpr int8_t kFree = 0, kOpen = 1, kClosed = 2;  // core/ssd.py
+constexpr int8_t kFree = 0, kOpen = 1, kClosed = 2, kRetired = 3;  // ssd.py
+constexpr int32_t kStatusOk = 0, kStatusDegraded = 1;               // ssd.py
 constexpr int32_t kIntMax = 2147483647;
 enum Mode { kModeGc = 0, kModeValve = 1, kModeMove = 2 };  // kernel.MODES
 
@@ -102,12 +117,25 @@ struct Ptrs {
   const int64_t* g;         // [D], kModeGc only (null otherwise)
   const uint8_t* enable;    // [D], or null: every drive enabled
   int64_t* out;             // [D, 3]: (victim, g, do)
+  // the fault hook's state and per-drive policy: all null without faults
+  int32_t* retired_blocks;  // [D]
+  int32_t* spares_left;     // [D]
+  int32_t* grp_retired;     // [D, G]
+  int32_t* drive_status;    // [D]
+  int32_t* degraded_at;     // [D]
+  int32_t* n_erase_fail;    // [D]
+  uint32_t* fault_draws;    // [D]
+  const int32_t* n_app;     // [D]
+  const float* fault_rate;       // [D]
+  const float* fault_rate_worn;  // [D]
+  const int32_t* endurance_limit;  // [D], INT32_MAX: never worn
+  const int64_t* fault_seed;     // [D], in [0, 2**32)
 };
 constexpr int kNumPtrs = sizeof(Ptrs) / sizeof(void*);
 
 // Sizes, in the order gc_one_cuda (gc_one/kernel.py) packs them.
 struct Dims {
-  int64_t lba_pages, n_blocks, pages_per_block, n_groups, reserve;
+  int64_t lba_pages, n_blocks, pages_per_block, n_groups, reserve, retries;
 };
 constexpr int kNumDims = sizeof(Dims) / sizeof(int64_t);
 
@@ -170,6 +198,34 @@ __device__ int block_argmin(int v, int i, int* s_v, int* s_i) {
   const int best = s_i[0];
   __syncthreads();
   return best;
+}
+
+// The JAX package's _fault_uniform: fmix32 over (seed, n), the top 24
+// bits as an exactly representable float32 in [0, 1).
+__device__ __forceinline__ float fault_uniform(uint32_t seed, uint32_t n) {
+  uint32_t h = seed + n * 2654435761u;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return __fmul_rn(__uint2float_rn(h >> 8), 5.9604644775390625e-8f);
+}
+
+// x^k for k >= 1 as lax.integer_pow lowers it: square and multiply, the
+// accumulator taken as x at the lowest set bit, each product rounded.
+__device__ __forceinline__ float integer_pow(float x, int k) {
+  float acc = x;
+  bool have = false;
+  while (k > 0) {
+    if (k & 1) {
+      acc = have ? __fmul_rn(acc, x) : x;
+      have = true;
+    }
+    k >>= 1;
+    if (k > 0) x = __fmul_rn(x, x);
+  }
+  return acc;
 }
 
 template <int MODE, bool DRAIN>
@@ -370,6 +426,35 @@ gc_one_kernel(const Ptrs p, const Dims n) {
     trim_dead[v] = 0;
     p.erase_total[d] += 1;
     p.erase_sq_total[d] += 2 * e_old + 1;
+    if (p.fault_draws) {  // the fault hook, on the erase just made
+      const bool worn = e_old >= p.endurance_limit[d];
+      const float base = p.fault_rate[d];
+      const float rate = worn ? fmaxf(p.fault_rate_worn[d], base) : base;
+      const uint32_t draw = p.fault_draws[d];
+      const float u =
+          fault_uniform(static_cast<uint32_t>(p.fault_seed[d]), draw);
+      p.fault_draws[d] = draw + 1u;
+      if (u < rate) p.n_erase_fail[d] += 1;
+      if (u < integer_pow(rate, 1 + static_cast<int>(n.retries))) {
+        const int32_t spares0 = p.spares_left[d];
+        const int32_t free_after = p.free_blocks[d] - 1;
+        state[v] = kRetired;
+        group_of[v] = g;
+        p.free_blocks[d] = free_after;
+        erase_count[v] = e_old;  // a failed erase completes no P-E cycle
+        p.erase_total[d] -= 1;
+        p.erase_sq_total[d] -= 2 * e_old + 1;
+        p.n_erase[d] -= 1;
+        p.retired_blocks[d] += 1;
+        p.grp_retired[d * G + g] += 1;
+        p.spares_left[d] = max(spares0 - 1, 0);
+        if (p.drive_status[d] == kStatusOk &&
+            (spares0 <= 0 || free_after <= 0)) {
+          p.drive_status[d] = kStatusDegraded;
+          if (p.degraded_at[d] < 0) p.degraded_at[d] = p.n_app[d];
+        }
+      }
+    }
     s_scalars[0] = space;
     s_scalars[1] = fill_ab;
     s_scalars[2] = ab_c;
@@ -414,10 +499,11 @@ cudaError_t launch_drain(bool drain, int n_drives, const Ptrs& p,
 
 }  // namespace
 
-// ptrs: kNumPtrs device pointers (host array) in Ptrs' order; dims:
-// kNumDims sizes in Dims' order; mode: kernel.MODES' index; drain: 1 under
-// the static detector. Returns a CUDA error code (0: launched);
-// cudaErrorInvalidValue for a count, size or mode the kernel does not take.
+// ptrs: kNumPtrs device pointers (host array) in Ptrs' order (the fault
+// hook's all null, or all set); dims: kNumDims sizes in Dims' order; mode:
+// kernel.MODES' index; drain: 1 under the static detector. Returns a CUDA
+// error code (0: launched); cudaErrorInvalidValue for a count, size or mode
+// the kernel does not take.
 extern "C" int gc_one_launch(void* const* ptrs, int n_ptrs,
                              const long long* dims, int n_dims, int n_drives,
                              int mode, int drain, void* stream) {
@@ -433,8 +519,20 @@ extern "C" int gc_one_launch(void* const* ptrs, int n_ptrs,
   for (int i = 0; i < kNumDims; ++i) sizes[i] = dims[i];
   if (n.n_groups < 1 || n.n_groups > kMaxGroups || n.n_blocks < 1 ||
       n.n_blocks > kIntMax || n.pages_per_block < 1 ||
-      n.pages_per_block > kMaxPages || (mode == kModeGc && !p.g)) {
+      n.pages_per_block > kMaxPages || (mode == kModeGc && !p.g) ||
+      n.retries < 0 || n.retries > 30) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the fault hook's pointers come all together or not at all
+  const void* fault[] = {p.retired_blocks, p.spares_left, p.grp_retired,
+                         p.drive_status, p.degraded_at, p.n_erase_fail,
+                         p.fault_draws, p.n_app, p.fault_rate,
+                         p.fault_rate_worn, p.endurance_limit,
+                         p.fault_seed};
+  for (const void* f : fault) {
+    if ((f == nullptr) != (p.fault_draws == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {

@@ -25,6 +25,15 @@
 //          as the simulator's fast path does, and the write clock w
 //          advances.
 //
+// HALT   (with faults: the JAX package's _halt_wrap, simulator.py:1693) a
+//          drive whose drive_status is no longer OK at the launch lands
+//          every event left as a counted no-op: n_halted += 1, nothing
+//          else changes, a WRITE still advances the write clock w (the
+//          host counts the stream's WRITEs), and the trace goes on flat.
+//          The run goes to the segment's end, so a degraded drive never
+//          stops for the heavy path and costs the host no read. No event
+//          depends on another here: the block's 32 threads share them.
+//
 // After every trace_every-th completed event the cumulative (n_app, n_mig)
 // go to the trace. stop[d] = (first event not completed, w there, why):
 // why is kStopEnd (the segment ran out), kStopHeavy, kStopRotation (a
@@ -58,6 +67,7 @@ namespace {
 constexpr int kMaxGroups = 64;
 constexpr int kThreads = 32;
 constexpr uint8_t kOpTrim = 1;  // repro_torch.core.workloads.OP_TRIM
+constexpr int32_t kStatusOk = 0;  // repro_torch.core.ssd.STATUS_OK
 // why a run stopped: write_run/kernel.py's STOP_WHY, in order
 enum StopWhy {
   kStopEnd = 0,
@@ -101,6 +111,8 @@ struct Ptrs {
   const float* fdp_rate;      // [D, G]
   int32_t* app;               // [D, n / trace_every]
   int32_t* mig;               // [D, n / trace_every]
+  const int32_t* drive_status;  // [D], null without faults
+  int32_t* n_halted;          // [D], null without faults
 };
 constexpr int kNumPtrs = sizeof(Ptrs) / sizeof(void*);
 
@@ -110,6 +122,36 @@ struct Dims {
       h, trace_every, rotate_min;
 };
 constexpr int kNumDims = sizeof(Dims) / sizeof(int64_t);
+
+// A degraded drive's events from start[d] to the segment's end, each a
+// counted no-op, with the block's 32 threads: they count the WRITEs (the
+// write clock advances by them) and fill the trace columns with the
+// unchanged (n_app, n_mig).
+template <bool TRIM>
+__device__ void halt(const Ptrs& p, const Dims& n, int64_t d) {
+  const int64_t nev = n.n_events, E = n.trace_every;
+  const int64_t j0 = p.start[2 * d];
+  const int64_t from = j0 < nev ? j0 : nev;
+  long long writes = 0;
+  for (int64_t j = from + threadIdx.x; j < nev; j += kThreads) {
+    writes += !TRIM || p.ops[d * nev + j] != kOpTrim;
+  }
+  for (int off = kThreads / 2; off > 0; off /= 2) {
+    writes += __shfl_down_sync(0xffffffffu, writes, off);
+  }
+  const int32_t n_app = p.n_app[d], n_mig = p.n_mig[d];
+  // the columns of the events from..nev-1 that close a trace stride
+  for (int64_t c = from / E + threadIdx.x; c < nev / E; c += kThreads) {
+    p.app[d * (nev / E) + c] = n_app;
+    p.mig[d * (nev / E) + c] = n_mig;
+  }
+  if (threadIdx.x == 0) {
+    p.n_halted[d] += static_cast<int32_t>(nev - from);
+    p.stop[3 * d] = j0 < nev ? nev : j0;
+    p.stop[3 * d + 1] = p.start[2 * d + 1] + writes;
+    p.stop[3 * d + 2] = kStopEnd;
+  }
+}
 
 template <int TD, bool TRIM, bool MOVE>
 __global__ void __launch_bounds__(kThreads)
@@ -121,6 +163,10 @@ write_run_kernel(const Ptrs p, const Dims n) {
   __shared__ bool s_active[kMaxGroups];
 
   const int64_t d = blockIdx.x;
+  if (p.drive_status && p.drive_status[d] != kStatusOk) {  // the whole block
+    halt<TRIM>(p, n, d);
+    return;
+  }
   const int G = static_cast<int>(n.n_groups);
   const int64_t B = n.pages_per_block, K = n.n_blocks, LBA = n.lba_pages;
   const int64_t slots = K * B;
@@ -332,8 +378,9 @@ cudaError_t launch_trim(bool trim, bool move, int n_drives, const Ptrs& p,
 
 }  // namespace
 
-// ptrs: kNumPtrs device pointers (host array) in Ptrs' order; dims:
-// kNumDims sizes in Dims' order. Returns a CUDA error code (0: launched);
+// ptrs: kNumPtrs device pointers (host array) in Ptrs' order (drive_status
+// and n_halted both null without faults); dims: kNumDims sizes in Dims'
+// order. Returns a CUDA error code (0: launched);
 // cudaErrorInvalidValue for a count or mode the kernel does not take.
 extern "C" int write_run_launch(void* const* ptrs, int n_ptrs,
                                 const long long* dims, int n_dims,
@@ -350,7 +397,7 @@ extern "C" int write_run_launch(void* const* ptrs, int n_ptrs,
   int64_t* sizes = reinterpret_cast<int64_t*>(&n);
   for (int i = 0; i < kNumDims; ++i) sizes[i] = dims[i];
   if (n.n_groups < 1 || n.n_groups > kMaxGroups || n.trace_every < 1 ||
-      n.h < 1) {
+      n.h < 1 || (p.drive_status == nullptr) != (p.n_halted == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

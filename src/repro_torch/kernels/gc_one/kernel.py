@@ -1,6 +1,7 @@
 """ctypes binding of the GC kernel (``kernels/csrc/gc_one.cu``), which
 chooses a GC's group and victim, decides it and, under the static
-detector, drains the victim in one launch: the redesign, for the
+detector, drains the victim in one launch (and, given a fault policy,
+passes the erase through the retry-then-retire hook): the redesign, for the
 simulator's paths, of the Pallas TPU kernel ``compact_slots`` in
 ``repro/kernels/gc_compact/kernel.py`` together with the JAX package's
 ``_gc_one`` around it."""
@@ -37,8 +38,16 @@ STATE_FIELDS = (
 # the fields among them that are one counter a drive ([D])
 COUNTERS = ("erase_total", "erase_sq_total", "free_blocks", "mapped_pages",
             "n_mig", "n_dropped", "n_erase", "clock")
+# SimState fields the fault hook reads or writes (a call with a fault
+# policy only), and the policy's per-drive tensors with their dtypes
+FAULT_FIELDS = ("retired_blocks", "spares_left", "grp_retired",
+                "drive_status", "degraded_at", "n_erase_fail", "fault_draws",
+                "n_app")
+FAULT_POLICY = {"fault_rate": torch.float32, "fault_rate_worn": torch.float32,
+                "endurance_limit": torch.int32, "fault_seed": torch.int64}
 # the kernel's pointer struct (Ptrs in gc_one.cu), in order
-ORDER = STATE_FIELDS + ("gc_w", "g", "enable", "out")
+ORDER = (STATE_FIELDS + ("gc_w", "g", "enable", "out") + FAULT_FIELDS
+         + tuple(FAULT_POLICY))
 
 
 def check_state(state) -> None:
@@ -75,11 +84,16 @@ def check_state(state) -> None:
         for name, (dtype, shape) in shapes.items()})
 
 
-def check_call(state, gc_w, g, out, *, mode, td_mode, enable=None) -> None:
+def check_call(state, gc_w, g, out, *, mode, td_mode, enable=None,
+               fault_policy=None, erase_max_retries=0) -> None:
     """Raise unless the rest of a call fits the checked ``state``: gc_w
     [D, 4] float32 (α, β, γ, τ); g [D] int64 in mode "gc", None in the
     others; out [D, 3] int64; enable [D] bool, or None (every drive);
-    contiguous, on the state's device."""
+    fault_policy None, or :data:`FAULT_POLICY`'s tensors [D] with the
+    state's :data:`FAULT_FIELDS`; contiguous, on the state's device;
+    erase_max_retries 0-30."""
+    if not 0 <= erase_max_retries <= 30:
+        raise ValueError(f"gc_one: erase_max_retries={erase_max_retries}")
     if mode not in MODES:
         raise ValueError(f"gc_one: mode {mode!r} not in {MODES}")
     if td_mode not in TD_MODES:
@@ -96,18 +110,30 @@ def check_call(state, gc_w, g, out, *, mode, td_mode, enable=None) -> None:
         specs["g"] = (g, torch.int64, (d,))
     if enable is not None:
         specs["enable"] = (enable, torch.bool, (d,))
+    if fault_policy is not None:
+        missing = [k for k in FAULT_FIELDS if k not in state]
+        if missing:
+            raise ValueError(f"gc_one: state lacks {missing}")
+        n_groups = state["grp_size"].shape[-1]
+        for k in FAULT_FIELDS:
+            dtype = torch.uint32 if k == "fault_draws" else torch.int32
+            shape = (d, n_groups) if k == "grp_retired" else (d,)
+            specs[k] = (state[k], dtype, shape)
+        for k, dtype in FAULT_POLICY.items():
+            specs[k] = (fault_policy[k], dtype, (d,))
     _build.check_tensors("gc_one", **specs)
 
 
-def check_args(state, gc_w, g, out, enable=None, *, mode, td_mode,
-               gc_reserve_blocks) -> None:
+def check_args(state, gc_w, g, out, enable=None, fault_policy=None, *,
+               mode, td_mode, gc_reserve_blocks, erase_max_retries=0) -> None:
     """Raise unless the arguments are what the kernel takes
     (:func:`check_state`, :func:`check_call`; gc_reserve_blocks: any
     int)."""
     del gc_reserve_blocks
     check_state(state)
     check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode,
-               enable=enable)
+               enable=enable, fault_policy=fault_policy,
+               erase_max_retries=erase_max_retries)
 
 
 # the last read-only state mapping launched on, and its packed pointers
@@ -129,26 +155,34 @@ def _state_pointers(state) -> list:
     return ptrs
 
 
-def gc_one_cuda(state, gc_w, g, out, enable=None, *, mode, td_mode,
-                gc_reserve_blocks) -> None:
+def gc_one_cuda(state, gc_w, g, out, enable=None, fault_policy=None, *,
+                mode, td_mode, gc_reserve_blocks, erase_max_retries=0) -> None:
     """Launch the kernel on the current stream: one GC per enabled drive,
-    decided (and under the static detector drained) on the card, in
-    place; writes (victim, g, do) into ``out``, (-1, -1, 0) for a drive
-    that ``enable`` leaves out."""
+    decided (and under the static detector drained, its erase through the
+    fault hook when ``fault_policy`` is given) on the card, in place;
+    writes (victim, g, do) into ``out``, (-1, -1, 0) for a drive that
+    ``enable`` leaves out."""
     global launches
     state_ptrs = _state_pointers(state)
     check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode,
-               enable=enable)
+               enable=enable, fault_policy=fault_policy,
+               erase_max_retries=erase_max_retries)
     if not out.is_cuda:
         raise ValueError(f"gc_one_cuda: tensors on {out.device}")
     fn = _build.launcher("gc_one")
+    if fault_policy is None:
+        fault_ptrs = [None] * (len(FAULT_FIELDS) + len(FAULT_POLICY))
+    else:
+        fault_ptrs = [state[k].data_ptr() for k in FAULT_FIELDS] + [
+            fault_policy[k].data_ptr() for k in FAULT_POLICY]
     ptrs = (ctypes.c_void_p * len(ORDER))(
         *state_ptrs, gc_w.data_ptr(), None if g is None else g.data_ptr(),
-        None if enable is None else enable.data_ptr(), out.data_ptr())
+        None if enable is None else enable.data_ptr(), out.data_ptr(),
+        *fault_ptrs)
     n_drives, k, b = state["slot_lba"].shape
-    dims = (ctypes.c_longlong * 5)(
+    dims = (ctypes.c_longlong * 6)(
         state["page_map"].shape[-1], k, b, state["grp_size"].shape[-1],
-        gc_reserve_blocks)
+        gc_reserve_blocks, erase_max_retries)
     err = fn(ptrs, len(ORDER), dims, len(dims), n_drives, MODES.index(mode),
              int(td_mode == "static"),
              torch.cuda.current_stream(out.device).cuda_stream)

@@ -7,8 +7,10 @@ the pool is at reserve; the emergency valve's group of the CLOSED block
 with the fewest live pages; the movement operation's group of the largest
 surplus), its victim by the weighted score (:func:`select_victim`), and
 decides; under the static detector a decided GC drains the victim
-(:func:`drain_static`). ``out[d] = (victim, g, do)``. A drive that
-``enable`` leaves out is not touched: ``out[d] = (-1, -1, 0)``.
+(:func:`drain_static`) and, with a fault policy, the erase goes through the
+retry-then-retire hook (:func:`erase_fault_retire`). ``out[d] = (victim,
+g, do)``. A drive that ``enable`` leaves out is not touched: ``out[d] =
+(-1, -1, 0)``.
 
 Decisions are Python values read from the tensors, uncounted: on the CPU
 the tensors are the host's own. The score is the simulator's float32
@@ -20,7 +22,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.ssd import CLOSED, FREE, INT32_MAX, OPEN
+from repro_torch.core.ssd import (
+    CLOSED,
+    FREE,
+    INT32_MAX,
+    OPEN,
+    RETIRED,
+    STATUS_DEGRADED,
+    STATUS_OK,
+)
+from repro_torch.kernels.gc_one.kernel import FAULT_POLICY
+
+_U32 = 0xFFFFFFFF
 
 
 def select_victim(s, g: int, gc_w):
@@ -185,11 +198,104 @@ def drain_static(s, victim: int, g: int) -> None:
     s["erase_sq_total"].add_(2 * e_old + 1)
 
 
-def gc_one_ref(state, gc_w, g, out, enable=None, *, mode, td_mode,
-               gc_reserve_blocks) -> None:
+def _mul32(x, c: int):
+    """``x * c`` modulo 2**32 for x in [0, 2**32) (an int64 tensor or a
+    Python int) and a 32-bit constant c: the product is taken in 16-bit
+    halves of c, so no intermediate leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = (x * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _U32
+
+
+def fault_uniform(seed, n):
+    """The JAX package's counter-based uniform in [0, 1): murmur3's fmix32
+    over (seed, draw index), both in [0, 2**32) as int64 tensors, wrapped
+    at 2**32 after every step as uint32 arithmetic wraps. The top 24 hash
+    bits make an exactly representable float32."""
+    h = (seed + _mul32(n, 2654435761)) & _U32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return (h >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def integer_pow(x, k: int):
+    """``x ** k`` for a Python int k >= 1 as ``lax.integer_pow`` lowers it
+    (square and multiply, ``acc = x`` at the lowest set bit), one rounded
+    float32 product at a time: ``torch.pow`` may round differently."""
+    acc = None
+    while k > 0:
+        if k & 1:
+            acc = x if acc is None else acc * x
+        k >>= 1
+        if k > 0:
+            x = x * x
+    return acc
+
+
+def erase_fault_retire(s, victim, g, policy, erase_max_retries: int) -> None:
+    """The JAX package's ``_erase_fault_retire``: the retry-then-retire
+    fault hook on one drive's fields ``s`` right after a drain erased
+    ``victim`` of group ``g`` (0-d int64 tensors), in place, with no host
+    read. ``policy`` holds the drive's :data:`FAULT_POLICY` as 0-d tensors.
+
+    One uniform u (seeded by ``fault_seed``, indexed by ``fault_draws``)
+    decides: the erase failed iff u < rate, and every one of its
+    ``1 + erase_max_retries`` attempts failed (the block retires) iff
+    u < rate^(1 + retries). The rate is ``fault_rate`` until the block's
+    P-E count before this erase reaches ``endurance_limit``, then the
+    larger of it and ``fault_rate_worn``. A retire undoes the erase's wear
+    (count, Σe, Σe², ``n_erase``), makes the block RETIRED under group g,
+    takes it out of the pool and draws a spare; a retire that finds no
+    spare, or leaves the pool empty, degrades the drive at ``n_app``."""
+    v, gg = victim.reshape(1), g.reshape(1)
+
+    def get(t, i):
+        return t.index_select(0, i).reshape(())
+
+    def put(t, i, val):
+        t.index_put_((i,), val.to(t.dtype).reshape(1))
+
+    ec_new = get(s["erase_count"], v)  # the erase's post-bump count
+    worn = (ec_new - 1) >= policy["endurance_limit"]
+    base = policy["fault_rate"]
+    rate = torch.where(worn, torch.maximum(policy["fault_rate_worn"], base),
+                       base)
+    draws = s["fault_draws"].view(torch.int32).long() & _U32
+    u = fault_uniform(policy["fault_seed"], draws)
+    failed = u < rate
+    retired = u < integer_pow(rate, 1 + erase_max_retries)
+    d = retired.to(torch.int32)
+    spares0 = s["spares_left"].clone()
+    free_after = s["free_blocks"] - d
+    degrade = (retired & (s["drive_status"] == STATUS_OK)
+               & ((spares0 <= 0) | (free_after <= 0)))
+    put(s["state"], v, torch.where(retired, RETIRED, get(s["state"], v)))
+    put(s["group_of"], v, torch.where(retired, g, get(s["group_of"], v)))
+    s["free_blocks"].copy_(free_after)
+    put(s["erase_count"], v, ec_new - d)
+    s["erase_total"].sub_(d)
+    s["erase_sq_total"].sub_(d * (2 * (ec_new - 1) + 1))
+    s["n_erase"].sub_(d)
+    s["retired_blocks"].add_(d)
+    s["grp_retired"].index_add_(0, gg, d.reshape(1))
+    s["spares_left"].copy_(torch.clamp(spares0 - d, min=0))
+    s["n_erase_fail"].add_(failed.to(torch.int32))
+    s["drive_status"].copy_(torch.where(degrade, STATUS_DEGRADED,
+                                        s["drive_status"]))
+    s["degraded_at"].copy_(torch.where(degrade & (s["degraded_at"] < 0),
+                                       s["n_app"], s["degraded_at"]))
+    s["fault_draws"].view(torch.int32).add_(1)  # wraps as uint32 does
+
+
+def gc_one_ref(state, gc_w, g, out, enable=None, fault_policy=None, *, mode,
+               td_mode, gc_reserve_blocks, erase_max_retries=0) -> None:
     """In place, the arguments of ``gc_one_cuda`` (see
     ``kernel.check_args``): each enabled drive's GC, one drive after
-    another."""
+    another; with ``fault_policy`` (the :data:`FAULT_POLICY` tensors [D])
+    each static drain's erase goes through :func:`erase_fault_retire`."""
     for d in range(out.shape[0]):
         if enable is not None and not bool(enable[d]):
             out[d] = torch.tensor([-1, -1, 0], device=out.device)
@@ -201,3 +307,8 @@ def gc_one_ref(state, gc_w, g, out, enable=None, *, mode, td_mode,
         out[d] = torch.tensor([victim, grp, int(do)], device=out.device)
         if do and td_mode == "static":
             drain_static(s, victim, grp)
+            if fault_policy is not None:
+                erase_fault_retire(
+                    s, out[d, 0], out[d, 1],
+                    {k: fault_policy[k][d] for k in FAULT_POLICY},
+                    erase_max_retries)

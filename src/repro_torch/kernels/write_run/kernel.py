@@ -1,7 +1,8 @@
 """ctypes binding of the run kernel (``kernels/csrc/write_run.cu``), which
 lands a run of the simulator's fast-path events (fast WRITEs and TRIMs)
-on the device: the redesign, for the simulator's paths, of the Pallas TPU
-kernels ``apply_write`` and ``apply_trim`` in
+on the device (with faults, a degraded drive's events as halted no-ops):
+the redesign, for the simulator's paths, of the Pallas TPU kernels
+``apply_write`` and ``apply_trim`` in
 ``repro/kernels/write_path/kernel.py``."""
 
 from __future__ import annotations
@@ -40,20 +41,24 @@ ORDER = (
     "grp_writes", "grp_active", "grp_p", "grp_surplus", "free_blocks",
     "mapped_pages", "n_app", "n_trim", "n_mig", "bloom_active",
     "bloom_passive", "bloom_writes", "page_group0", "page_rate", "fdp_rate",
-    "app", "mig",
+    "app", "mig", "drive_status", "n_halted",
 )
+# SimState fields the halt guard reads or writes (with_faults only)
+HALT_FIELDS = ("drive_status", "n_halted")
 
 
 def check_args(lbas, ops, start, stop, state, policy, app, mig, *, h,
                trace_every, td_mode, movement_ops,
-               bloom_rotate_min_writes) -> None:
+               bloom_rotate_min_writes, with_faults=False) -> None:
     """Raise unless the arguments are what the kernel takes: events lbas
     [D, n] int64 and ops [D, n] uint8 (or None: every event a WRITE);
     start [D, 2] and stop [D, 3] int64; ``state`` a mapping of
     :data:`STATE_FIELDS` to the SimState fields' tensors with a leading
     drive axis; ``policy`` page_rate [D, LBA] float32, fdp_rate [D, G]
     float32 and, with ops, page_group0 [D, LBA] int64; trace buffers app
-    and mig [D, n / trace_every] int32. All contiguous, on one device."""
+    and mig [D, n / trace_every] int32; with_faults, the state's
+    drive_status and n_halted [D] int32 too. All contiguous, on one
+    device."""
     del movement_ops, bloom_rotate_min_writes  # any bool, any int
     missing = [k for k in STATE_FIELDS if k not in state]
     if missing:
@@ -102,21 +107,27 @@ def check_args(lbas, ops, start, stop, state, policy, app, mig, *, h,
         "bloom_active": (torch.bool, (d, g, bits)),
         "bloom_passive": (torch.bool, (d, g, bits)),
     }
+    if with_faults:
+        shapes.update({f: (i32, (d,)) for f in HALT_FIELDS})
     for name, (dtype, shape) in shapes.items():
+        if name not in state:
+            raise ValueError(f"write_run: state lacks {name}")
         specs[name] = (state[name], dtype, shape)
     _build.check_tensors("write_run", **specs)
 
 
 def write_run_cuda(lbas, ops, start, stop, state, policy, app, mig, *, h,
                    trace_every, td_mode, movement_ops,
-                   bloom_rotate_min_writes) -> None:
+                   bloom_rotate_min_writes, with_faults=False) -> None:
     """Launch the kernel on the current stream; lands each drive's run in
-    place and writes where and why it stopped into ``stop``."""
+    place (with_faults: a degraded drive's events as halted no-ops) and
+    writes where and why it stopped into ``stop``."""
     global launches
     check_args(lbas, ops, start, stop, state, policy, app, mig, h=h,
                trace_every=trace_every, td_mode=td_mode,
                movement_ops=movement_ops,
-               bloom_rotate_min_writes=bloom_rotate_min_writes)
+               bloom_rotate_min_writes=bloom_rotate_min_writes,
+               with_faults=with_faults)
     if not lbas.is_cuda:
         raise ValueError(f"write_run_cuda: tensors on {lbas.device}")
     fn = _build.launcher("write_run")
@@ -124,6 +135,8 @@ def write_run_cuda(lbas, ops, start, stop, state, policy, app, mig, *, h,
                "stop": stop, "app": app, "mig": mig}
     if ops is None:
         tensors["page_group0"] = None
+    if not with_faults:
+        tensors.update(dict.fromkeys(HALT_FIELDS))
     ptrs = (ctypes.c_void_p * len(ORDER))(*[
         None if tensors[k] is None else tensors[k].data_ptr() for k in ORDER])
     n_drives, n = lbas.shape

@@ -8,7 +8,9 @@ group on an op stream, §5.6 target group, heavy predicate, bloom
 rotation), then either stops the run before it or commits as the
 simulator's fast write: one page appended to its group's open block.
 ``stop[d] = (first event not completed, w there, why)``, why an index
-into ``kernel.STOP_WHY``. Integers are Python ints; the two float32 decisions
+into ``kernel.STOP_WHY``. With faults, a drive already degraded lands
+every event left as a halted no-op (``n_halted``; a WRITE still advances
+w) and runs to the end. Integers are Python ints; the two float32 decisions
 are rounded as the simulator rounds them: the FDP band compares float32
 values, and the hit rates are float32 divisions (torch, on the host).
 What it is held to, on the CPU, is the simulator's per-event step
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 OP_TRIM = 1  # repro_torch.core.workloads.OP_TRIM
+STATUS_OK = 0  # repro_torch.core.ssd.STATUS_OK
 END, HEAVY, ROTATION, INDEX = range(4)  # kernel.STOP_WHY
 
 
@@ -43,9 +46,32 @@ def _neighbor_hotter(hr, active, g):
     return g if nb < 0 else nb
 
 
+def _halt_drive(d, ops, start, stop, s, app, mig, n, trace_every):
+    """A degraded drive's events from ``start[d]`` to the end, each a
+    counted no-op (the JAX package's ``_halt_wrap``)."""
+    j, w = start[d].tolist()
+    n_app, n_mig = int(s["n_app"]), int(s["n_mig"])
+    is_write = ([True] * n if ops is None
+                else [o != OP_TRIM for o in ops[d].tolist()])
+    for jj in range(j, n):
+        w += is_write[jj]
+        if (jj + 1) % trace_every == 0:
+            app[d, (jj + 1) // trace_every - 1] = n_app
+            mig[d, (jj + 1) // trace_every - 1] = n_mig
+    s["n_halted"].add_(max(n - j, 0))
+    stop[d, 0] = max(j, n)
+    stop[d, 1] = w
+    stop[d, 2] = END
+
+
 def _run_drive(d, lbas, ops, start, stop, state, policy, app, mig, *, h,
-               trace_every, td_mode, movement_ops, bloom_rotate_min_writes):
+               trace_every, td_mode, movement_ops, bloom_rotate_min_writes,
+               with_faults=False):
     s = {k: v[d] for k, v in state.items()}
+    if with_faults and int(s["drive_status"]) != STATUS_OK:
+        _halt_drive(d, ops, start, stop, s, app, mig, lbas.shape[1],
+                    trace_every)
+        return
     page_map, group_of = s["page_map"], s["group_of"]
     slot_lba, valid = s["slot_lba"].view(-1), s["valid"].view(-1)
     fill, live, trim_dead = s["fill"], s["live"], s["trim_dead"]
@@ -185,11 +211,12 @@ def _run_drive(d, lbas, ops, start, stop, state, policy, app, mig, *, h,
 
 def write_run_ref(lbas, ops, start, stop, state, policy, app, mig, *, h,
                   trace_every, td_mode, movement_ops,
-                  bloom_rotate_min_writes) -> None:
+                  bloom_rotate_min_writes, with_faults=False) -> None:
     """In place, the arguments of ``write_run_cuda`` (see
     ``kernel.check_args``): each drive's run, one drive after another."""
     for d in range(lbas.shape[0]):
         _run_drive(d, lbas, ops, start, stop, state, policy, app, mig, h=h,
                    trace_every=trace_every, td_mode=td_mode,
                    movement_ops=movement_ops,
-                   bloom_rotate_min_writes=bloom_rotate_min_writes)
+                   bloom_rotate_min_writes=bloom_rotate_min_writes,
+                   with_faults=with_faults)

@@ -370,6 +370,167 @@ def test_gc_one_kernel_with_enable_matches_plain_version(cuda, td_mode,
         assert torch.equal(v[1::2], args["state"][k][1::2]), k
 
 
+def _fault_policy(d, cuda_rate=(0.0, 0.3, 0.6, 1.0)):
+    """A fault policy [d] that retires some erases and keeps others: base
+    rates cycling through ``cuda_rate``, every third drive worn out
+    (endurance limit 0, worn rate 1.0), seeds spread over uint32."""
+    i = torch.arange(d)
+    return {
+        "fault_rate": torch.tensor(cuda_rate)[i % len(cuda_rate)],
+        "fault_rate_worn": torch.ones(d),
+        "endurance_limit": torch.where(i % 3 == 0, 0, 2**31 - 1).int(),
+        "fault_seed": (i * 2654435761 + 12345) % 2**32,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("retries", [0, 3])
+@pytest.mark.parametrize("d", [1, 8])
+def test_gc_one_kernel_with_faults_matches_plain_version(cuda, d, retries):
+    """The static GC with the fault hook: from a Table-2 state reached on
+    the card, d drives' decided GCs (open blocks full and over budget)
+    through the kernel and gc_one_ref, with a fault policy that retires
+    some erases, spares 0 on every other drive (a retire degrades it) and
+    draw counters near the top of uint32: out and every state field
+    exact, and at least one block retired."""
+    ctx, st, policy, _ = _table2_drive("static", False)
+    b = TABLE2.pages_per_block
+    fields = gc_one_kernel.STATE_FIELDS + gc_one_kernel.FAULT_FIELDS
+    state = {k: (v.view(1) if v.dim() == 0 else v[None])
+             for k, v in ((k, getattr(st, k).cpu()) for k in fields)}
+    state = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
+             for k, v in state.items()}
+    i = torch.arange(d)
+    state["spares_left"] = torch.where(i % 2 == 0, 0, 3).int()
+    state["fault_draws"].view(torch.int32).copy_((-3 - 1000 * i).int())
+    g = i % ctx.n_groups
+    for j in range(d):
+        state["fill"][j, int(state["active_blk"][j, g[j]])] = b
+        state["grp_alloc"][j, g[j]] = 0
+    args = dict(state=state, gc_w=policy["gc_w"].cpu().repeat(d, 1), g=g,
+                out=torch.full((d, 3), -9, dtype=torch.int64),
+                fault_policy=_fault_policy(d))
+    kw = dict(mode="gc", td_mode="static",
+              gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks,
+              erase_max_retries=retries)
+
+    def on(device):
+        return {k: None if v is None else (
+            {kk: vv.to(device, copy=True) for kk, vv in v.items()}
+            if isinstance(v, dict) else v.to(device, copy=True))
+            for k, v in args.items()}
+
+    got, want = on(cuda), on("cpu")
+    gc_one_kernel.gc_one_cuda(**got, **kw)
+    torch.cuda.synchronize()
+    gc_one_ref.gc_one_ref(**want, **kw)
+    assert want["out"][:, 2].all()
+    assert torch.equal(got["out"].cpu(), want["out"])
+    for k, v in want["state"].items():
+        assert torch.equal(got["state"][k].cpu().view(v.dtype), v), k
+    assert (want["state"]["retired_blocks"] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_trim", [True, False], ids=["trim", "writes"])
+def test_write_run_kernel_halts_degraded_drives(cuda, with_trim):
+    """Six Table-2 drives, every other one degraded, through write_run
+    with faults and through write_run_ref: stop, trace and every state
+    field exact; a degraded drive runs to the end, halting each event."""
+    ctx, st, policy, phase = _table2_drive("static", with_trim)
+    d, n = 6, 256
+    rows = [dataclasses.replace(phase, n_writes=n).sample_ops(
+        np.random.default_rng(7 + i)) for i in range(d)]
+    fields = wr_kernel.STATE_FIELDS + wr_kernel.HALT_FIELDS
+    state = {k: (v.view(1) if v.dim() == 0 else v[None])
+             for k, v in ((k, getattr(st, k).cpu()) for k in fields)}
+    state = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
+             for k, v in state.items()}
+    state["drive_status"] = (torch.arange(d) % 2).int()
+    args = dict(
+        lbas=torch.from_numpy(np.stack([lb for _, lb in rows]).astype(
+            np.int64)),
+        ops=torch.from_numpy(np.stack([o for o, _ in rows]).astype(
+            np.uint8)) if with_trim else None,
+        start=torch.tensor([[0, int(st.n_app)]] * d),
+        stop=torch.full((d, 3), -1), state=state,
+        policy={k: policy[k].cpu().repeat(d, 1) for k in (
+            "page_rate", "fdp_rate", "page_group0") if k in policy},
+        app=torch.full((d, n), -1, dtype=torch.int32),
+        mig=torch.full((d, n), -1, dtype=torch.int32),
+    )
+    mode = dict(h=ctx.h, trace_every=1, td_mode="static",
+                movement_ops=ctx.mcfg.movement_ops,
+                bloom_rotate_min_writes=ctx.mcfg.bloom_rotate_min_writes,
+                with_faults=True)
+
+    def on(device):
+        return {k: None if v is None else (
+            {kk: vv.to(device, copy=True) for kk, vv in v.items()}
+            if isinstance(v, dict) else v.to(device, copy=True))
+            for k, v in args.items()}
+
+    got, want = on(cuda), on("cpu")
+    wr_kernel.write_run_cuda(**got, **mode)
+    torch.cuda.synchronize()
+    wr_ref.write_run_ref(**want, **mode)
+    for k in ("stop", "app", "mig"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    for k, v in want["state"].items():
+        assert torch.equal(got["state"][k].cpu(), v), k
+    halted = state["drive_status"] == 1
+    assert (want["stop"][halted, 0] == n).all()
+    assert (want["state"]["n_halted"][halted] == n).all()
+    assert (want["state"]["n_halted"][~halted] == 0).all()
+
+
+def _faulty_specs(n):
+    """Faulty drives at Geometry(4, 32, 8) that degrade within n events:
+    static, fdp and bloom (the hook after the demoting drain), one on a
+    TRIM op stream, beside a fault-free static drive."""
+    lba = Geometry(4, 32, 8).lba_pages
+    kw = dict(fault_rate=0.1, erase_max_retries=0)
+    return [
+        fleet.DriveSpec(managers.wolf(**kw), (workloads.two_modal(lba, n),),
+                        1),
+        fleet.DriveSpec(managers.wolf(erase_max_retries=0),
+                        (workloads.two_modal(lba, n),), 2),
+        fleet.DriveSpec(managers.fdp(**kw), (workloads.two_modal(lba, n),),
+                        3),
+        fleet.DriveSpec(managers.wolf_dynamic(**kw),
+                        (workloads.tpcc_churn(lba, n),), 4),
+    ]
+
+
+@pytest.mark.cuda
+def test_card_faulty_runs_and_fleet_match_cpu(cuda):
+    """Faulty drives (retire hook in gc_one and after the demoting drain,
+    halt guard in write_run) on the card equal their CPU runs, alone and
+    as a fleet with a fault-free drive, bit for bit."""
+    geom, specs = Geometry(4, 32, 8), _faulty_specs(3000)
+    for s in specs[::2]:
+        card = managers.simulate(geom, s.mcfg, list(s.phases), seed=s.seed,
+                                 device="cuda")
+        host = managers.simulate(geom, s.mcfg, list(s.phases), seed=s.seed,
+                                 device="cpu")
+        np.testing.assert_array_equal(card.app, host.app)
+        np.testing.assert_array_equal(card.mig, host.mig)
+        assert card.host_syncs == host.host_syncs
+        for name, v in card.state.items():
+            assert torch.equal(v.cpu(), host.state[name]), (s.label, name)
+        assert int(card.state.retired_blocks) > 0
+    card = fleet.simulate_fleet(geom, specs, sampler="numpy")
+    host = fleet.simulate_fleet(geom, specs, sampler="numpy", device="cpu")
+    np.testing.assert_array_equal(card.app, host.app)
+    np.testing.assert_array_equal(card.mig, host.mig)
+    assert card.exec_meta == host.exec_meta
+    for i in range(len(specs)):
+        for name, v in card.state(i).items():
+            assert torch.equal(v.cpu(), host.state(i)[name]), (i, name)
+    assert (card.drive_status() == host.drive_status()).all()
+    assert (card.drive_status() != 0).any()
+
+
 def _mixed_fleet(n):
     """Drives of every sub-batch kind at Geometry(4, 32, 8): static
     closed-form (two seeds, one on a two-phase swap), fdp, single_group,

@@ -175,9 +175,13 @@ def test_reference_engine_and_faults_are_refused():
     with pytest.raises(NotImplementedError):
         fleet.simulate_fleet(Geometry(*GEOM), specs, gc_impl="reference",
                              device="cpu")
-    faulty = [fleet.DriveSpec(managers.wolf(fault_rate=0.1), specs[0].phases)]
-    with pytest.raises(NotImplementedError):
-        fleet.simulate_fleet(Geometry(*GEOM), faulty, device="cpu")
+    # a faulty fleet now runs: its drive equals its run alone
+    faulty = [fleet.DriveSpec(managers.wolf(fault_rate=0.1), specs[0].phases,
+                              seed=specs[0].seed)]
+    res = fleet.simulate_fleet(Geometry(*GEOM), faulty, sampler="numpy",
+                               device="cpu")
+    assert int(res.state(0).retired_blocks) > 0
+    assert_equals_runs_alone(res, faulty)
     uneven = [specs[0], fleet.DriveSpec(
         managers.wolf(), (workloads.two_modal(LBA, N + 1),))]
     with pytest.raises(ValueError):

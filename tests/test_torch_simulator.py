@@ -156,19 +156,47 @@ def test_convert_round_trip_and_dtype_check(runs):
         convert.state_from_numpy(d, device="cpu")
 
 
+# each faulty preset's keywords and workload: fdp and wolf_dynamic (the
+# demoting drains, the hook after them) fail 5% of erases with no retry;
+# wolf_endurance retires blocks at 2 P-E cycles
+FAULTY = {
+    "fdp": ({"fault_rate": 0.05, "erase_max_retries": 0}, "two_modal"),
+    "wolf_dynamic": ({"fault_rate": 0.05, "erase_max_retries": 0},
+                     "tpcc_like"),
+    "wolf_endurance": ({"endurance_pe_limit": 2}, "uniform"),
+}
+
+
 @pytest.mark.parametrize("preset", ["fdp", "wolf_dynamic", "wolf_endurance"])
 def test_configs_not_ported_yet_raise(preset):
-    """Fault injection is the one configuration left to port: every preset
-    with a nonzero fault rate is refused, by name."""
-    kw = {} if preset == "wolf_endurance" else {"fault_rate": 1e-3}
-    mcfg = ManagerConfig(
-        **dataclasses.asdict(getattr(ref_managers, preset)(**kw)))
-    assert mcfg.has_faults
-    pg = Geometry(*GEOM)
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet: fault injection"):
-        managers.simulate(pg, mcfg, [workloads.uniform(pg.lba_pages, 16)],
-                          device="cpu")
+    """Fault injection was the last configuration the port refused; it
+    now runs. Each faulty preset through ``managers.simulate`` on the CPU
+    equals the JAX package's ``simulate(..., faults=True)``: traces and
+    every integer state field exactly, ``grp_p`` within 1e-6; and blocks
+    retired on the way."""
+    kw, workload = FAULTY[preset]
+    ref_cfg = getattr(ref_managers, preset)(**kw)
+    mcfg = ManagerConfig(**dataclasses.asdict(ref_cfg))
+    assert mcfg.has_faults and mcfg == getattr(managers, preset)(**kw)
+    rg, pg = RefGeometry(*GEOM), Geometry(*GEOM)
+    ref = ref_managers.simulate(
+        rg, ref_cfg, _phases(ref_workloads, workload, rg.lba_pages),
+        seed=SEED, faults=True)
+    port = managers.simulate(
+        pg, mcfg, _phases(workloads, workload, pg.lba_pages), seed=SEED,
+        device="cpu")
+    np.testing.assert_array_equal(port.app, np.asarray(ref.app))
+    np.testing.assert_array_equal(port.mig, np.asarray(ref.mig))
+    got = convert.state_to_numpy(port.state)
+    for name, want in ref.state.items():
+        if name == "grp_p":
+            np.testing.assert_allclose(got[name], np.asarray(want), rtol=0,
+                                       atol=GRP_P_ATOL)
+        else:
+            np.testing.assert_array_equal(got[name], np.asarray(want),
+                                          err_msg=name)
+    assert_invariants(port.state, preset)
+    assert int(port.state.retired_blocks) > 0
 
 
 def test_entry_points_default_to_the_card():
