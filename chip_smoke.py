@@ -4,6 +4,9 @@
                           [--small-writes N] [--iters N] [--profile-writes N]
                           [--run-warm N] [--fleet-drives D,D,...]
                           [--fleet-window N] [--fleet-mix-events N]
+                          [--reference-writes N]
+                          [--reference-churn-events N]
+                          [--reference-endurance-writes N]
                           [--phases P,P,...]
 
 Phases, one JSON line each; any failed check exits non-zero:
@@ -38,7 +41,9 @@ Phases, one JSON line each; any failed check exits non-zero:
               exact against gc_one_ref, and at D = 64 with every odd
               drive disabled (a fleet round's mask); gc_one with the
               fault hook (a decided GC whose erase may fail and retire the
-              block) at D = 1 and 64 from the same state, and write_run
+              block) at D = 1 and 64 from the same state, gc_one deciding
+              without draining under the static detector (the reference
+              drain's call) at D = 1 and 64, and write_run
               with the halt guard at D = 64 with every third drive
               degraded, each exact against its plain version; gc_compact
               on move lists whose
@@ -47,7 +52,12 @@ Phases, one JSON line each; any failed check exits non-zero:
   equiv_small six preset/workload pairs at Geometry(4, 32, 8) on the card
               and on the CPU (static wolf and single_group, fdp on the §6.2
               swap, wolf_dynamic on tpcc_like, and TRIM op streams):
-              traces and state must agree;
+              traces and state must agree; then the reference engine
+              (fast_path=False, gc_impl="reference") on a sixth of the
+              events: wolf, fdp on the swap, wolf_trim_aware on
+              tpcc_churn, and a fleet of four (static, fdp, bloom on
+              tpcc_churn, an fdp drive failing half its erase attempts),
+              card = CPU;
   full_width  the paper's Table-2 drive (Geometry(8, 1024, 128), 1,048,576
               pages, LBA/PBA 0.70) under wolf on two_modal, through
               managers.simulate on the card with the kernels' launch counts
@@ -93,6 +103,19 @@ Phases, one JSON line each; any failed check exits non-zero:
               to degrade and the survival fraction at four points; drive 0
               must equal full_width_endurance's run, drives 31 and 63
               their runs alone on the card;
+  full_width_reference  the reference engine (every event stepped alone,
+              each GC drained page by page) at Table-2 width against the
+              split engine on the card over the same events, exact: (a)
+              wolf on full_width's stream, its first --reference-writes
+              writes; (b) wolf_dynamic on the churn stream, its first
+              --reference-churn-events events, one apply_trim launch a
+              TRIM; (c) full_width_endurance's configuration on (a)'s
+              stream, its first --reference-endurance-writes writes,
+              degrading at write 665 with 33 retired at the default seed
+              and --writes; (d) (a) with write_run's runs and the
+              reference drain. Counts set to 0 just before each; seconds,
+              events/s, host syncs and launches a case (the oracle's
+              cost, no claim);
   serve_full_width  the Wolf-KV serving engine on internlm2-1.8b at its
               full published width in bf16 (random weights from --seed): 48
               requests of 256 prompt tokens and 256 new ones, policies
@@ -108,6 +131,11 @@ Phases, one JSON line each; any failed check exits non-zero:
               a compaction (the gc_compact kernel) and one more decode
               against the dense cache with the evicted positions masked:
               logits must agree within 2e-3 at every step;
+  allocation  optimal_allocation and hillclimb_allocation for
+              full_width's drive (two halves of the logical pages, updated
+              0.9 / 0.1, over its OP) on the card and on the CPU: card =
+              CPU, the optimum no worse than the closed form, the hill
+              climber within 0.5% of it;
   profile     short runs of the simulator's two Table-2 paths (a fresh
               drive's first events, and a window after --run-warm events)
               and of the serving engine under torch.profiler: device busy
@@ -875,6 +903,7 @@ def gc_one_inputs(torch, args, mode, d):
     inputs = dict(state=state, gc_w=drives(gc_w),
                   g=g if mode == "gc" else None)
     kw = dict(mode=mode, td_mode=ctx.mcfg.td_mode,
+              drain=ctx.mcfg.td_mode == "static",
               gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
     return inputs, kw
 
@@ -1015,6 +1044,53 @@ def gc_one_masked(torch, args, card):
     del inputs, got, want
     torch.cuda.empty_cache()
     return line
+
+
+def gc_one_decide(torch, args, card):
+    """gc_one under the static detector with drain=False (the reference
+    drain's call: the launch only decides) at D = 1 and 64, in mode "gc"
+    from full_width's state with every drive's group's open block full
+    and over budget: out exact against gc_one_ref, every GC decided, the
+    state untouched; times queued and unqueued."""
+    from repro_torch.kernels.gc_one import kernel as gc_one_kernel
+    from repro_torch.kernels.gc_one.ref import gc_one_ref
+
+    results = {}
+    for d in (1, 64):
+        inputs, kw = gc_one_inputs(torch, args, "gc", d)
+        kw["drain"] = False
+        got, want = gc_one_fresh(torch, inputs), gc_one_fresh(torch, inputs)
+        gc_one_kernel.gc_one_cuda(**got, **kw)
+        gc_one_ref(**want, **kw)
+        torch.cuda.synchronize()
+        bad = ["out"] if not torch.equal(got["out"], want["out"]) else []
+        bad += same_state(got["state"], inputs["state"])
+        bad += same_state(want["state"], inputs["state"])
+        check(not bad, f"gc_one decide D={d}: kernel != plain, or the "
+              f"state changed, in {bad}")
+        decided = int(got["out"][:, 2].sum())
+        check(decided == d, f"gc_one decide D={d}: {decided} decided")
+        ms = time_launches(
+            torch, args, lambda: gc_one_fresh(torch, inputs),
+            lambda run: gc_one_kernel.gc_one_cuda(**run, **kw),
+            lambda run: gc_one_ref(**run, **kw), 3 - (d > 1))
+        # the scan and out of gc_one_bytes; no victim slot is read
+        b = inputs["state"]["slot_lba"].shape[-1]
+        nbytes = gc_one_bytes(inputs["state"], got["state"], got["out"],
+                              inputs, "gc") - decided * b * 5
+        line = {
+            "phase": "kernels", "name": "gc_one", "case": "full_width",
+            "mode": "gc", "drain": False, "drives": d,
+            "td_mode": kw["td_mode"], "decided": decided,
+            "equal": True, "max_abs_err": 0, **ms, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "card": card,
+        }
+        emit(line)
+        results[("gc_one", "decide", d)] = line
+        del inputs, got, want
+        torch.cuda.empty_cache()
+    return results
 
 
 def signed(t):
@@ -1318,6 +1394,7 @@ def phase_kernels(torch, args, card):
     results.update(run_halted(torch, args, card))
     results.update(gc_one_kernels(torch, args, card))
     results.update(gc_one_faults(torch, args, card))
+    results.update(gc_one_decide(torch, args, card))
     results.update(serving_kernels(torch, args, card))
     return results
 
@@ -1375,6 +1452,71 @@ def phase_equiv_small(torch, args):
             "host_syncs": res["cuda"].host_syncs,
             "seconds_card_and_cpu": seconds,
         })
+    equiv_small_reference(torch, args, geom)
+
+
+def equiv_small_reference(torch, args, geom):
+    """The reference engine (fast_path=False, gc_impl="reference") at
+    Geometry(4, 32, 8), a sixth of --small-writes events (it steps every
+    event alone): wolf, fdp on the §6.2 swap and wolf_trim_aware on
+    tpcc_churn, and a fleet of four in lock-step (static, fdp, bloom on
+    tpcc_churn, and an fdp drive failing half its erase attempts with 8
+    spares) on the card and on the CPU, identical."""
+    from repro_torch.core import fleet, managers, workloads
+    from repro_torch.core.ssd import assert_invariants
+
+    n, lba = args.small_writes // 6 // 2 * 2, geom.lba_pages
+    engine = dict(fast_path=False, gc_impl="reference")
+    runs = [
+        ("wolf", "two_modal", [workloads.two_modal(lba, n)]),
+        ("fdp", "swap_phases", list(workloads.swap_phases(lba, n // 2))),
+        ("wolf_trim_aware", "tpcc_churn", [workloads.tpcc_churn(lba, n)]),
+    ]
+    for preset, workload, phases in runs:
+        mcfg = getattr(managers, preset)()
+        t0 = time.perf_counter()
+        res = {dev: managers.simulate(geom, mcfg, phases, seed=args.seed,
+                                      device=dev, **engine)
+               for dev in ("cuda", "cpu")}
+        seconds = time.perf_counter() - t0
+        label = f"equiv_small reference {preset}/{workload}"
+        bad = same_run(torch, res["cuda"], res["cpu"])
+        check(not bad, f"{label}: cuda != cpu in {bad}")
+        assert_invariants(res["cuda"].state, label)
+        emit({"phase": "equiv_small", "engine": "reference",
+              "manager": mcfg.name, "workload": workload,
+              "geometry": [4, 32, 8], "events": n, "identical": True,
+              "wa_total": res["cuda"].wa_total,
+              "erases": int(res["cuda"].state.n_erase),
+              "trims": int(res["cuda"].state.n_trim),
+              "host_syncs": res["cuda"].host_syncs,
+              "seconds_card_and_cpu": seconds})
+    specs = [
+        fleet.DriveSpec(managers.wolf(), (workloads.two_modal(lba, n),), 1),
+        fleet.DriveSpec(managers.fdp(), (workloads.two_modal(lba, n),), 2),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_churn(lba, n),), 3),
+        fleet.DriveSpec(managers.fdp(fault_rate=0.5, spare_blocks=8),
+                        (workloads.two_modal(lba, n),), 4),
+    ]
+    t0 = time.perf_counter()
+    res = {dev: fleet.simulate_fleet(geom, specs, sampler="numpy",
+                                     device=dev, **engine)
+           for dev in ("cuda", "cpu")}
+    seconds = time.perf_counter() - t0
+    for i in range(len(specs)):
+        bad = same_run(torch, res["cuda"].result(i), res["cpu"].result(i))
+        check(not bad, f"equiv_small reference fleet drive {i}: cuda != "
+              f"cpu in {bad}")
+    faulty = res["cuda"].state(3)
+    check(int(faulty.retired_blocks) > 0,
+          "equiv_small reference fleet: the faulty drive retired nothing")
+    emit({"phase": "equiv_small", "engine": "reference", "fleet": True,
+          "drives": [sp.label for sp in specs], "geometry": [4, 32, 8],
+          "events": n, "identical": True,
+          "wa": res["cuda"].wa_total.tolist(),
+          "faulty": endurance_line(faulty),
+          "seconds_card_and_cpu": seconds})
 
 
 def zero_counts() -> None:
@@ -1726,6 +1868,186 @@ def phase_fleet_endurance(torch, args, card):
     emit(line)
     del res
     torch.cuda.empty_cache()
+    return line
+
+
+# full_width_endurance's degradation at (seed, --writes): the write it
+# degrades at and the blocks it retires (R20c on the split engine)
+ENDURANCE_DEGRADED = {(0, 100_000): (665, 33)}
+
+
+def prefix_run(geom, mcfg, phase, n, seed, device, **engine):
+    """managers.simulate's run of one phase, cut to the phase stream's
+    first ``n`` events: the same drive (``build_drive``), the same seeded
+    stream, then ``simulator.run`` over its first n events under the
+    engine's context. Returns a RunResult."""
+    from repro_torch.core import managers, simulator
+
+    st, n_groups, assumed_p, fdp_rate, rates, pg0 = managers.build_drive(
+        geom, mcfg, [phase], device=device)
+    ctx = simulator.SimContext(geom, mcfg, n_groups, with_trim=phase.has_trim,
+                               with_faults=mcfg.has_faults, **engine)
+    rng = np.random.default_rng(seed)
+    kw = dict(page_rate=rates[0], assumed_p=assumed_p, fdp_rate=fdp_rate)
+    n = min(n, phase.n_writes)
+    if phase.has_trim:
+        ops, lbas = phase.sample_ops(rng)
+        kw.update(ops=ops[:n], page_group0=pg0)
+    else:
+        lbas = phase.sample(rng)
+    st, trace = simulator.run(ctx, st, lbas[:n], device=device, **kw)
+    return managers.RunResult(trace["app"], trace["mig"], st,
+                              host_syncs=trace["host_syncs"])
+
+
+def phase_full_width_reference(torch, args, card):
+    """The reference engine on the card at Table-2 width, held to the
+    split engine on the card over the same events (traces and every
+    state field exact, grp_p within 1e-6): (a) wolf on full_width's
+    stream, fast_path=False and gc_impl="reference", its first
+    --reference-writes writes (the fresh drive's GC burst and §5.1
+    intervals); (b) wolf_dynamic on full_width_churn's stream, the same
+    engine, its first --reference-churn-events events (every TRIM one
+    apply_trim launch, demoting per-page drains); (c) full_width_endurance's
+    configuration on (a)'s stream, its first --reference-endurance-writes
+    writes (it degrades within them at the default seed and --writes);
+    (d) (a) with fast_path=True (write_run's runs, the reference drain on
+    the heavy writes). Counts set to 0 just before each reference run and
+    read just after; the oracle's cost is reported, with no claim."""
+    from repro_torch.core import managers, workloads
+    from repro_torch.core.ssd import Geometry, assert_invariants
+
+    geom = Geometry(**TABLE2)
+    two_modal = workloads.two_modal(geom.lba_pages, args.writes, p_hot=0.9,
+                                    frac_hot=0.5)
+    churn = workloads.tpcc_churn(geom.lba_pages, args.churn_events)
+    ref = dict(fast_path=False, gc_impl="reference")
+    cases = [
+        ("a", managers.wolf(), two_modal, args.reference_writes, ref),
+        ("b", managers.wolf_dynamic(), churn, args.reference_churn_events,
+         ref),
+        ("c", managers.wolf_endurance(**ENDURANCE), two_modal,
+         args.reference_endurance_writes, ref),
+        ("d", managers.wolf(), two_modal, args.reference_writes,
+         dict(fast_path=True, gc_impl="reference")),
+    ]
+    total = dict.fromkeys(read_launches(), 0)
+    split_runs, lines = {}, {}
+    for case, mcfg, phase, n, engine in cases:
+        n = min(n, phase.n_writes)  # a quick call's shorter stream
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prefix_run(geom, mcfg, phase, n, args.seed, "cuda", **engine)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        for k, v in launches.items():
+            total[k] += v
+        key = (mcfg, n)
+        if key not in split_runs:
+            split_runs[key] = prefix_run(geom, mcfg, phase, n, args.seed,
+                                         "cuda")
+        split = split_runs[key]
+        label = f"full_width_reference ({case})"
+        bad = same_run(torch, res, split)
+        check(not bad, f"{label}: reference != split engine in {bad}")
+        st = res.state
+        assert_invariants(st, label)
+        check(launches["gc_one"] > 0, f"{label}: no gc_one launch")
+        check(launches["compact_slots"] == launches["apply_write"] == 0,
+              f"{label}: a bulk drain or a per-row write ran: {launches}")
+        check((launches["write_run"] > 0) == engine["fast_path"],
+              f"{label}: {launches['write_run']} write_run launches")
+        trims = int(st.n_trim)
+        check(launches["apply_trim"] == (0 if engine["fast_path"] else trims),
+              f"{label}: {launches['apply_trim']} apply_trim launches for "
+              f"{trims} TRIMs")
+        line = {
+            "phase": "full_width_reference", "case": case,
+            "manager": mcfg.name, "engine": engine, "events": n,
+            "writes": int(st.n_app), "trims": trims,
+            "erases": int(st.n_erase), "migrations": int(st.n_mig),
+            "intervals": int(st.interval), "equal_to_split": True,
+            "wa_total": res.wa_total, "seconds": seconds,
+            "events_per_s": n / seconds, "host_syncs": res.host_syncs,
+            "launches": {k: launches[k] for k in (
+                "gc_one", "apply_trim", "write_run", "compact_slots")},
+            "card": card,
+        }
+        if case == "b":
+            check(trims > 0 and int(st.n_erase) > 0,
+                  f"{label}: {trims} TRIMs, {int(st.n_erase)} drains")
+        if mcfg.has_faults:
+            faults = endurance_line(st)
+            line.update(faults)
+            want = ENDURANCE_DEGRADED.get((args.seed, args.writes))
+            if want is not None and n > want[0]:
+                check((faults["degraded_at"], faults["retired"]) == want,
+                      f"{label}: degraded at {faults['degraded_at']} with "
+                      f"{faults['retired']} retired, not {want}")
+        emit(line)
+        lines[case] = line
+        del res
+        torch.cuda.empty_cache()
+    return {"launches": total, "cases": lines}
+
+
+def phase_allocation(torch, args, card):
+    """The oracle allocations of §5.5 for full_width's drive: two groups
+    of half the logical pages each, updated 0.9 / 0.1, over the drive's
+    OP (PBA − LBA pages): optimal_allocation (600 steps of exponentiated
+    gradient) and hillclimb_allocation (blocks of 128 pages) on the card
+    and on the CPU. The card's equal the CPU's (WA within rtol 1e-5 and
+    the split within 1e-3 of OP for the optimum, WA within rtol 1e-6 for
+    the hill climber); the optimum is no worse than the closed form (eq.
+    8) and the hill climber within 0.5% of it."""
+    from repro_torch.core import allocation
+    from repro_torch.core.ssd import Geometry
+
+    geom = Geometry(**TABLE2)
+    lba = geom.lba_pages
+    s, p = [lba / 2, lba / 2], [0.9, 0.1]
+    op = float(geom.pba_pages - lba)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ts = torch.tensor(s, dtype=torch.float32, device=dev)
+        tp = torch.tensor(p, dtype=torch.float32, device=dev)
+        res = {"closed_form": allocation.allocate_closed_form(ts, tp, op)}
+        for name, fn in (("optimal", allocation.optimal_allocation),
+                         ("hillclimb", allocation.hillclimb_allocation)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[name] = fn(ts, tp, op)
+            torch.cuda.synchronize()
+            res[name + "_s"] = time.perf_counter() - t0
+        for name in ("closed_form", "optimal", "hillclimb"):
+            res[name + "_wa"] = float(allocation.total_wa(ts, tp, res[name]))
+            res[name] = res[name].cpu().tolist()
+        out[dev] = res
+    card_r, cpu_r = out["cuda"], out["cpu"]
+    check(np.allclose(card_r["optimal_wa"], cpu_r["optimal_wa"], rtol=1e-5,
+                      atol=0)
+          and np.allclose(card_r["optimal"], cpu_r["optimal"], rtol=0,
+                          atol=1e-3 * op),
+          f"allocation: optimum on the card {card_r['optimal']} "
+          f"({card_r['optimal_wa']}), on the CPU {cpu_r['optimal']} "
+          f"({cpu_r['optimal_wa']})")
+    check(np.allclose(card_r["hillclimb_wa"], cpu_r["hillclimb_wa"],
+                      rtol=1e-6, atol=0),
+          f"allocation: hill climber's WA {card_r['hillclimb_wa']} on the "
+          f"card, {cpu_r['hillclimb_wa']} on the CPU")
+    for r in (card_r, cpu_r):
+        check(r["optimal_wa"] <= r["closed_form_wa"] + 1e-6,
+              f"allocation: optimum {r['optimal_wa']} above the closed "
+              f"form's {r['closed_form_wa']}")
+        check(r["hillclimb_wa"] <= r["optimal_wa"] * 1.005,
+              f"allocation: hill climber {r['hillclimb_wa']} not within "
+              f"0.5% of the optimum {r['optimal_wa']}")
+    line = {"phase": "allocation", "s": s, "p": p, "op_pages": op,
+            "card_equals_cpu": True, **{f"{dev}": r for dev, r in out.items()},
+            "card": card}
+    emit(line)
     return line
 
 
@@ -2304,6 +2626,9 @@ def main() -> None:
         int(x) for x in v.split(",")], default=[1, 8, 64, 256])
     ap.add_argument("--fleet-window", type=int, default=5000)
     ap.add_argument("--fleet-mix-events", type=int, default=20_000)
+    ap.add_argument("--reference-writes", type=int, default=20_000)
+    ap.add_argument("--reference-churn-events", type=int, default=10_000)
+    ap.add_argument("--reference-endurance-writes", type=int, default=2000)
     ap.add_argument("--phases", type=lambda v: v.split(","), default=None,
                     help="run only these phases (comma-separated; the "
                     "kernel summary line needs kernels and every path)")
@@ -2348,10 +2673,13 @@ def main() -> None:
         "fleet": timed("fleet", phase_fleet, card),
         "fleet_endurance": timed("fleet_endurance", phase_fleet_endurance,
                                  card),
+        "full_width_reference": timed("full_width_reference",
+                                      phase_full_width_reference, card),
         "serve_full_width": timed("serve_full_width", phase_serve_full_width,
                                   card),
         "dense_vs_paged": timed("dense_vs_paged", phase_dense_vs_paged, card),
     }
+    timed("allocation", phase_allocation, card)
     timed("profile", phase_profile, card)
     if args.phases is not None:  # a partial run: no summary, no ok line
         print(nvidia_smi(), flush=True)
@@ -2381,7 +2709,8 @@ def main() -> None:
         "write_run": [(c, d) for c in RUN_CASES for d in (1, 64)]
         + [("halted", 64)],
         "gc_one": [(m, d) for m in GC_MODES for d in (1, 64)]
-        + [("gc_masked", 64), ("faults", 1), ("faults", 64)],
+        + [("gc_masked", 64), ("faults", 1), ("faults", 64),
+           ("decide", 1), ("decide", 64)],
         **{n: [(d,) for d in (1, 64)]
            for n in ("apply_write", "apply_trim", "compact_slots")},
         "gc_compact": [(t, c) for t in ("bfloat16", "float32")

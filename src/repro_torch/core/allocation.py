@@ -1,24 +1,29 @@
 """Over-provisioning allocation across temperature groups (paper §5.5).
 
-The counterpart of the part of ``repro.core.allocation`` that the simulator's
-§5.1 interval update and the fleet's analytics call: the three closed-form
-policies over float32 tensors of group sizes ``s`` and update frequencies
-``p``, and the eq. 5 model WA.
+The counterpart of ``repro.core.allocation``, over float32 tensors of group
+sizes ``s`` and update frequencies ``p``:
 
   * ``allocate_by_size``       eq. (6):  OP_x = s_x · V,  V = OP/LBA
   * ``allocate_by_frequency``  eq. (7):  OP_x = p_x · OP
   * ``allocate_closed_form``   eq. (8):  the average of the two, plus the
                                §5.5.3 cold-group escape hatch.
   * ``total_wa``               eq. (5):  Σ_x p_x · WA(s_x, OP_x), each group
-                               a uniform sub-SSD whose δ_x solves eq. 4.
+                               a uniform sub-SSD whose δ_x solves eq. 4;
+                               differentiable through the implicit
+                               derivative of δ.
+  * ``optimal_allocation``     eq. (5) minimized on the simplex by
+                               exponentiated gradient (the paper's oracle
+                               baseline [20, 9]).
+  * ``hillclimb_allocation``   the literal block-granularity hill climber.
 
 The group axis is the last one: ``s`` and ``p`` may carry leading axes
 (``[D, G]``, one row a drive), and each row's result is bit for bit the
-result for that row alone.
+result for that row alone. The two optima take one ``[G]`` split.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.analytics import op_ratio_from_delta, wa_from_delta
@@ -31,6 +36,8 @@ __all__ = [
     "allocate_by_size",
     "allocate_by_frequency",
     "allocate_closed_form",
+    "optimal_allocation",
+    "hillclimb_allocation",
 ]
 
 
@@ -50,15 +57,12 @@ def fsum(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Eq. 5: the model WA of a group split (what FleetResult.predicted_wa reads)
+# Eq. 5: the model WA of a group split, differentiable in OP
 # ---------------------------------------------------------------------------
 
-def _delta_from_ratio(r: torch.Tensor) -> torch.Tensor:
+def _bisect_delta(r: torch.Tensor) -> torch.Tensor:
     """δ with op_ratio_from_delta(δ) = r, by 80 float32 bisection steps on
-    (1e-9, 1 − 1e-9), as the JAX package's. Its custom JVP (the implicit
-    derivative) comes with ``optimal_allocation``, which is not ported
-    yet: this version is not differentiated."""
-    r = torch.as_tensor(r)
+    (1e-9, 1 − 1e-9), as the JAX package's."""
     lo = torch.full_like(r, 1e-9)
     hi = torch.full_like(r, 1.0 - 1e-9)
     for _ in range(80):
@@ -66,6 +70,29 @@ def _delta_from_ratio(r: torch.Tensor) -> torch.Tensor:
         too_low = op_ratio_from_delta(mid) < r
         lo, hi = torch.where(too_low, mid, lo), torch.where(too_low, hi, mid)
     return 0.5 * (lo + hi)
+
+
+class _DeltaFromRatio(torch.autograd.Function):
+    """δ(r) by bisection, differentiated implicitly: with f(δ) =
+    (δ−1)/ln δ, f'(δ) = (ln δ − (δ−1)/δ) / ln² δ and dδ/dr = 1 / f'(δ)
+    (the JAX package's custom JVP, transposed)."""
+
+    @staticmethod
+    def forward(ctx, r):
+        delta = _bisect_delta(r)
+        ctx.save_for_backward(delta)
+        return delta
+
+    @staticmethod
+    def backward(ctx, grad):
+        (delta,) = ctx.saved_tensors
+        ln = torch.log(delta)
+        fprime = (ln - (delta - 1.0) / delta) / (ln * ln)
+        return grad / fprime
+
+
+# δ with op_ratio_from_delta(δ) = r, for a float32 tensor r
+_delta_from_ratio = _DeltaFromRatio.apply
 
 
 def group_delta(s, op) -> torch.Tensor:
@@ -158,3 +185,79 @@ def allocate_closed_form(
     )
     with_cold = torch.where(mask, rest, cold_op.unsqueeze(-1))
     return torch.where(is_skewed.unsqueeze(-1), with_cold, base)
+
+
+# ---------------------------------------------------------------------------
+# Oracle optima (the paper's comparison baselines)
+# ---------------------------------------------------------------------------
+
+def optimal_allocation(s, p, op_total, *, steps: int = 600,
+                       lr: float = 0.25) -> torch.Tensor:
+    """Minimize eq. (5) over the simplex {OP_x ≥ 0, Σ OP_x = OP}.
+
+    The space is convex (§5.5.3), so exponentiated gradient on
+    ``softmax(θ)`` converges to the optimum: from the closed form (without
+    the cold rule), each step takes eq. 5's gradient by autograd (non-finite
+    entries zeroed), normalizes it by its largest magnitude and moves θ by
+    ``lr / (1 + 0.02 i)``, float32 as the JAX package rounds it; the best θ
+    seen is kept. A plain loop on the inputs' device. Returns float32 [G].
+    """
+    s = torch.as_tensor(s, dtype=torch.float32)
+    p = torch.as_tensor(p, dtype=torch.float32, device=s.device)
+    op_total = torch.as_tensor(op_total, dtype=torch.float32, device=s.device)
+    init = allocate_closed_form(s, p, op_total, cold_rule=False)
+    theta = torch.log(torch.clamp(init / op_total, min=1e-6))
+
+    def objective(theta):
+        return total_wa(s, p, torch.softmax(theta, -1) * op_total)
+
+    best_theta = theta
+    with torch.no_grad():
+        best_wa = objective(theta)
+    for i in range(steps):
+        th = theta.detach().requires_grad_(True)
+        wa = objective(th)
+        (g,) = torch.autograd.grad(wa, th)
+        wa = wa.detach()
+        better = wa < best_wa
+        best_theta = torch.where(better, theta, best_theta)
+        best_wa = torch.where(better, wa, best_wa)
+        g = torch.where(torch.isfinite(g), g, 0.0)
+        gnorm = torch.clamp(g.abs().amax(), min=1e-30)
+        # float32, as the JAX package's step over its int32 counter
+        step = np.float32(lr) / (np.float32(1.0) + np.float32(0.02) * i)
+        theta = theta - float(step) * g / gnorm
+    return torch.softmax(best_theta, -1) * op_total
+
+
+def hillclimb_allocation(s, p, op_total, *, block_pages: int = 128,
+                         max_moves: int = 10_000) -> torch.Tensor:
+    """The literal hill climber of [20]: from the proportional split, move
+    one block of OP from the group whose WA suffers least to the group
+    whose WA gains most while that improves eq. 5 by more than 1e-9
+    (globally optimal to block granularity, by convexity). A move
+    evaluates the G givers as one ``total_wa`` call over a candidate axis,
+    then the G takers as another, and reads one decision on the host.
+    Returns float32 [G] on the inputs' device."""
+    s = torch.as_tensor(s, dtype=torch.float32)
+    p = torch.as_tensor(p, dtype=torch.float32, device=s.device)
+    n = s.shape[-1]
+    step = float(block_pages)
+    op = allocate_by_size(s, op_total)
+    eye = torch.eye(n, dtype=torch.float32, device=s.device) * step
+    idx = torch.arange(n, device=s.device)
+    for _ in range(max_moves):
+        base = total_wa(s, p, op)
+        # WA after donating one block FROM group i (if it holds one)
+        wa_minus = torch.where(op >= step, total_wa(s, p, op - eye),
+                               torch.inf)
+        giver = torch.argmin(wa_minus).reshape(1)
+        # WA after then granting that block TO group j
+        op_after_take = op - eye.index_select(0, giver)[0]
+        wa_plus = torch.where(idx == giver, torch.inf,
+                              total_wa(s, p, op_after_take + eye))
+        taker = torch.argmin(wa_plus).reshape(1)
+        if not bool(wa_plus.index_select(0, taker)[0] < base - 1e-9):
+            break
+        op = op_after_take + eye.index_select(0, taker)[0]
+    return op

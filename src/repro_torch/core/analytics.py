@@ -1,15 +1,20 @@
 """Closed-form analytics of the paper's model, in PyTorch: the counterpart
-of the part of ``repro.core.analytics`` that the fleet's results read.
+of ``repro.core.analytics``.
 
+  * eq. 1 and 2: a block's decay under a uniform workload (§4.1);
   * eq. 3's LBA/PBA as a function of δ, its inversion by bisection, and
-    WA = 1/(1-δ) (§4.2);
+    WA = 1/(1-δ) with its inverse (§4.2);
+  * TRIM as dynamic over-provisioning: the effective utilization of a
+    drive holding part of its logical span trimmed, and its equilibrium
+    WA;
   * wear: the erase-count variance from the carried aggregates, the
     max/mean P-E imbalance, and the host writes and drive-writes-per-day a
     P-E budget allows at a measured WA and imbalance;
   * survival: the retired fraction of the block array, the utilization
     and equilibrium WA of a drive that retired it, and a fleet's survival
     curve from its drives' degradation times;
-  * the windowed WA over a drive's lifetime from its cumulative trace.
+  * the windowed WA over a drive's lifetime from its cumulative trace;
+  * Appendix A: eq. 9, δ through the principal branch of Lambert's W.
 
 Values are float32, as the JAX package computes them.
 """
@@ -20,10 +25,18 @@ import numpy as np
 import torch
 
 __all__ = [
+    "block_decay_updates",
+    "block_live_pages",
     "op_ratio_from_delta",
     "delta_from_op_ratio",
+    "delta_from_op_ratio_lambertw",
     "wa_from_delta",
+    "delta_from_wa",
     "wa_from_op_ratio",
+    "op_ratio_from_wa",
+    "effective_op_ratio",
+    "wa_with_trim",
+    "lambertw0",
     "wear_variance",
     "wear_imbalance",
     "lifetime_host_writes",
@@ -34,6 +47,23 @@ __all__ = [
     "survival_fraction",
     "wa_vs_lifetime",
 ]
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def block_decay_updates(g, *, b: float, lba: float) -> torch.Tensor:
+    """Eq. (1): the application updates X until a freshly written block of
+    ``b`` pages has decayed to ``g`` live pages, under a uniform workload
+    over ``lba`` logical pages: X = LBA · ln(B / G)."""
+    return lba * torch.log(b / _f32(g))
+
+
+def block_live_pages(x, *, b: float, lba: float) -> torch.Tensor:
+    """Eq. (2): the live pages G left after ``x`` application updates:
+    G = B · exp(−X / LBA)."""
+    return b * torch.exp(-_f32(x) / lba)
 
 
 def op_ratio_from_delta(delta: torch.Tensor) -> torch.Tensor:
@@ -48,8 +78,9 @@ def wa_from_delta(delta: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 - torch.as_tensor(delta))
 
 
-def _f32(x) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32)
+def delta_from_wa(wa) -> torch.Tensor:
+    """Inverse of :func:`wa_from_delta`: δ = 1 − 1/WA."""
+    return 1.0 - 1.0 / _f32(wa)
 
 
 def delta_from_op_ratio(r, *, iters: int = 80) -> torch.Tensor:
@@ -70,6 +101,26 @@ def delta_from_op_ratio(r, *, iters: int = 80) -> torch.Tensor:
 def wa_from_op_ratio(r, *, iters: int = 80) -> torch.Tensor:
     """Equilibrium WA of a uniform workload at utilization ratio r."""
     return wa_from_delta(delta_from_op_ratio(r, iters=iters))
+
+
+def op_ratio_from_wa(wa) -> torch.Tensor:
+    """The utilization ratio r = LBA/PBA at which a uniform workload's
+    equilibrium WA is ``wa`` (eq. 3 in closed form)."""
+    return op_ratio_from_delta(delta_from_wa(wa))
+
+
+def effective_op_ratio(r, trim_frac) -> torch.Tensor:
+    """Utilization ratio of a drive holding a fraction ``trim_frac`` of its
+    logical span TRIMMED (Frankie et al., arXiv:1208.1794): a trimmed page
+    holds no physical slot, so r_eff = (1 − t)·LBA / PBA = r·(1 − t)."""
+    return _f32(r) * (1.0 - _f32(trim_frac))
+
+
+def wa_with_trim(r, trim_frac, *, iters: int = 80) -> torch.Tensor:
+    """Equilibrium WA of a uniform workload at utilization ``r`` with a
+    fraction ``trim_frac`` of the logical span trimmed: eq. 3 at the
+    effective ratio."""
+    return wa_from_op_ratio(effective_op_ratio(r, trim_frac), iters=iters)
 
 
 def wear_variance(erase_total, erase_sq_total, n_blocks: int) -> torch.Tensor:
@@ -154,3 +205,33 @@ def wa_vs_lifetime(app, mig, *, window: int = 2000,
     return np.where(
         d_app > 0, (d_app + d_mig) / np.maximum(d_app, 1), np.nan
     )
+
+
+def lambertw0(a, *, iters: int = 32) -> torch.Tensor:
+    """The principal branch W0 of Lambert's W for a >= -1/e, by a fixed
+    count of float32 Halley steps from the JAX package's first guess (the
+    series about the branch point below -0.2, log1p above 0, ``a`` in
+    between). A step whose residual is 0 or whose denominator vanishes
+    (the branch point, w = -1) leaves w as it is."""
+    a = _f32(a)
+    e = torch.ones((), dtype=torch.float32, device=a.device).exp()
+    p = torch.sqrt(torch.clamp(2.0 * (e * a + 1.0), min=0.0))
+    w_branch = -1.0 + p - p * p / 3.0  # the series about a = -1/e
+    w_log = torch.where(a > 0, torch.log1p(a), a)
+    w = torch.where(a < -0.2, w_branch, w_log)
+    for _ in range(iters):
+        ew = torch.exp(w)
+        f = w * ew - a
+        denom = ew * (w + 1.0) - (w + 2.0) * f / (2.0 * w + 2.0)
+        step = torch.where(denom.abs() > 1e-30, f / denom, 0.0)
+        w = torch.where(f.abs() > 0.0, w - step, w)
+    return w
+
+
+def delta_from_op_ratio_lambertw(r) -> torch.Tensor:
+    """Eq. (9): δ = −r · W0(−(1/r) · e^(−1/r)), the equilibrium root in
+    (0, 1) (W−1 would give the trivial root δ = 1); the same δ as
+    :func:`delta_from_op_ratio`."""
+    r = _f32(r)
+    z = 1.0 / r  # PBA/LBA > 1
+    return -r * lambertw0(-z * torch.exp(-z))

@@ -40,9 +40,17 @@ segment's end, so it never stops a run, never enters a round's mask or a
 ``gc_one`` enable, and no §5.1 hold waits for it. ``FleetResult`` reports
 ``drive_status``, ``retired_fraction`` and ``time_to_degraded``.
 
+Engines: ``gc_impl`` and ``fast_path`` choose the drain and the step as
+for one drive (``managers.simulate``): the reference drain and the
+reference step (every event in lock-step over the D drives, masked per
+drive) are the oracles, and every pair gives the same results. The JAX
+package's fleet steps the reference step by default, because under
+``vmap`` a ``lax.cond`` runs both branches and the split step's lean
+branch is extra work there; here the split step's runs are the fast
+path, so ``fast_path=True`` stays the default.
+
 What the JAX package's fleet does across devices (a mesh, its device
-count, compile caches, its single-path step) has no counterpart on one
-card, and neither has its reference GC drain (``gc_impl="reference"``).
+count, compile caches) has no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -309,16 +317,11 @@ def _interval_len(geom: Geometry, mcfg: ManagerConfig) -> int:
     return SimContext(geom, mcfg, 1).h
 
 
-def _check(geom, specs, *, sampler, gc_impl, trace_every, ops_stream):
+def _check(geom, specs, *, sampler, trace_every, ops_stream):
     if not specs:
         raise ValueError("empty fleet")
     if sampler not in ("device", "numpy"):
         raise ValueError(f"unknown sampler {sampler!r}")
-    if gc_impl == "reference":
-        raise NotImplementedError(
-            "not ported yet: the reference GC drain (gc_impl='reference')")
-    if gc_impl != "bulk":
-        raise ValueError(f"unknown gc_impl {gc_impl!r}")
     if ops_stream is False and any(_spec_has_trim(s) for s in specs):
         raise ValueError(
             "specs carry TRIMs: ops_stream=False is not available")
@@ -379,6 +382,7 @@ def simulate_fleet(
     init_p_from_phase: bool = True,
     return_lbas: bool = False,
     gc_impl: str = "bulk",
+    fast_path: bool = True,
     trace_every: int = 1,
     ops_stream: bool | None = None,
     device="cuda",
@@ -395,12 +399,15 @@ def simulate_fleet(
     every drive through it (with the numpy sampler the events are then the
     same on pure-write phases, and so is the run).
 
+    gc_impl / fast_path: the drain and the step engine (see the module
+    docstring), a scheduling choice: the results are the same.
+
     trace_every must divide the event total and every segment between
     phase boundaries; app/mig come back [B, n_total // trace_every].
     Every spec must issue the same number of events.
     """
-    n_total = _check(geom, specs, sampler=sampler, gc_impl=gc_impl,
-                     trace_every=trace_every, ops_stream=ops_stream)
+    n_total = _check(geom, specs, sampler=sampler, trace_every=trace_every,
+                     ops_stream=ops_stream)
 
     def key(s: DriveSpec):
         k = _part_key(s)
@@ -420,6 +427,7 @@ def simulate_fleet(
         with_trim = part[4]
         st, ctx, policy, rates = _build(geom, sub, init_p_from_phase,
                                         trace_every, with_trim, device)
+        ctx = dataclasses.replace(ctx, gc_impl=gc_impl, fast_path=fast_path)
         lbas, ops = _streams(sub, geom, n_total, sampler=sampler,
                              with_trim=with_trim, device=device)
         if return_lbas:

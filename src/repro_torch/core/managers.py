@@ -190,6 +190,8 @@ def simulate(
     *,
     seed: int = 0,
     init_p_from_phase: bool = True,
+    gc_impl: str = "bulk",
+    fast_path: bool = True,
     trace_every: int = 1,
     ops_stream: bool | None = None,
     faults: bool | None = None,
@@ -198,6 +200,10 @@ def simulate(
     """Run a (possibly multi-phase) workload under a manager preset on
     ``device``; the same seed draws the same stream as the JAX package's
     ``managers.simulate``.
+
+    gc_impl: "bulk" (the drive's victim at once, default) or "reference"
+    (page by page, the oracle); fast_path: False steps every event
+    through the reference step. Every pair gives the same run.
 
     ops_stream: None routes through the op-stream engine iff a phase
     carries TRIMs; True forces it for pure-write phases too (the sampled
@@ -226,7 +232,8 @@ def simulate(
         device=device,
     )
     ctx = SimContext(geom, mcfg, n_groups, trace_every=trace_every,
-                     with_trim=ops_stream, with_faults=faults)
+                     with_trim=ops_stream, with_faults=faults,
+                     gc_impl=gc_impl, fast_path=fast_path)
     apps, migs, syncs = [], [], 0
     for phase, page_rate in zip(phases, page_rates):
         if ops_stream:

@@ -40,7 +40,7 @@ left untouched. Each GC (the group's own, the emergency valve's, a
 movement operation's) is one ``kernels/gc_one`` launch for all the drives
 the mask enables: it chooses the group and the victim and decides on the
 device, as the JAX package's one ``lax.cond`` does; under the static
-detector it drains the victim in the same launch. A drain that demotes
+detector the bulk drain runs in the same launch. A drain that demotes
 (FDP or bloom detector) runs on the host after one read of the D
 decisions, drive by drive on views of the batch, and moves the victim's
 slot metadata with ``kernels/gc_compact.compact_slots``.
@@ -64,6 +64,19 @@ or the pool exhausted degrades the drive; from its next event on every
 event is a counted no-op (``n_halted``, the JAX package's ``_halt_wrap``),
 which ``write_run`` lands to the segment's end on the device, so a
 degraded drive never stops a run and is never in a round's mask.
+
+The reference engine (``SimContext.fast_path=False`` and
+``gc_impl="reference"``) is the per-page oracle that the JAX package's own
+tests hold its split engine against, kept here for the same use: it is
+not a path users pay for. Its step (:func:`_scan_reference`) takes every
+event alone, in lock-step over the D drives with no ``write_run`` launch:
+a TRIM through one ``apply_trim`` launch, a WRITE through the whole
+invalidate, the target group under every detector and the heavy tail.
+Its drain (:func:`_gc_drain_reference`) takes a victim's slots one by
+one, each page re-targeted on the state as the drain has moved it and
+appended through the heavy path's write (one read a page): ``gc_one``
+then only decides. Either can be chosen alone, and every pair gives the
+same results.
 
 Interval alignment: a drive that stops on the write that completes a §5.1
 interval is held (relaunched, it re-stops at once: the run kernel decides
@@ -90,6 +103,7 @@ from repro_torch.core.ssd import (
     CLOSED,
     FREE,
     OPEN,
+    STATUS_OK,
     Geometry,
     ManagerConfig,
     SimState,
@@ -100,6 +114,7 @@ from repro_torch.core.workloads import OP_TRIM
 from repro_torch.kernels.gc_compact.ops import compact_slots_
 from repro_torch.kernels.gc_one.ops import gc_one_
 from repro_torch.kernels.gc_one.ref import FAULT_POLICY, erase_fault_retire
+from repro_torch.kernels.write_path.ops import apply_trim_
 from repro_torch.kernels.write_run.kernel import STOP_WHY
 from repro_torch.kernels.write_run.ops import write_run_
 
@@ -109,6 +124,7 @@ GC_W_GREEDY = (1.0, 0.0, 0.0, 0.0)
 # allocation modes that take the §5.5 closed form (fdp_assumed feeds it
 # FDP's assumed frequencies instead of the measured ones)
 CLOSED_FORM_MODES = ("wolf", "optimal", "fdp_assumed")
+GC_IMPLS = ("bulk", "reference")
 
 # device→host reads made for decisions since the count was last set to 0
 host_syncs = 0
@@ -143,6 +159,21 @@ class SimContext:
     # capacity leaves the §5.5 budget, and a degraded drive halts. False
     # runs the fault-free step exactly (no launch, no read of its own)
     with_faults: bool = False
+    # GC drain: "bulk" (the victim at once: in gc_one's launch under the
+    # static detector, _gc_drain_bulk under a demoting one) or "reference"
+    # (_gc_drain_reference, page by page: the oracle)
+    gc_impl: str = "bulk"
+    # step engine: True runs the fast events in write_run's runs and only
+    # the heavy ones through the tail; False steps every event through the
+    # reference step (the oracle). The two give the same results
+    fast_path: bool = True
+
+    def __post_init__(self):
+        if self.gc_impl not in GC_IMPLS:
+            raise ValueError(f"gc_impl {self.gc_impl!r} not in {GC_IMPLS}")
+        if not isinstance(self.fast_path, bool):
+            raise ValueError(f"fast_path must be a bool, not "
+                             f"{self.fast_path!r}")
 
     @property
     def h(self) -> int:
@@ -381,10 +412,13 @@ def _pop_free_block(st: SimState, g, on=None):
     return blk, ok
 
 
-def _write_page(ctx: SimContext, st: SimState, lba, g, on=None) -> None:
-    """Append each selected drive's application page ``lba[d]`` to its
-    group g[d]'s active block, allocating a fresh block where it is full
-    (the heavy path's write; one read: which drives need a block)."""
+def _write_page(ctx: SimContext, st: SimState, lba, g, on=None, *,
+                migration: bool = False) -> None:
+    """Append each selected drive's page ``lba[d]`` to its group g[d]'s
+    active block, allocating a fresh block where it is full (one read:
+    which drives need a block): the heavy path's application write, or
+    with ``migration`` a GC migration, counted in ``n_mig`` where it
+    lands. A drive outside ``on`` is left untouched, its map too."""
     b = ctx.geom.pages_per_block
     blk = _gat(st.active_blk, g)
     blk_c = blk.clamp(min=0).long()
@@ -418,6 +452,8 @@ def _write_page(ctx: SimContext, st: SimState, lba, g, on=None) -> None:
     _acc(st.grp_live, g, one)
     st.mapped_pages.add_(one)
     st.n_dropped.add_(_and(~ok, on).to(torch.int32))
+    if migration:
+        st.n_mig.add_(one)
 
 
 def _invalidate_counts(ctx: SimContext, st: SimState, lba, on=None):
@@ -449,6 +485,31 @@ def _clear_valid(ctx: SimContext, st: SimState, pm) -> None:
     flat = pm.clamp(min=0).long()
     valid = st.valid.view(st.n_drives, -1)
     _sca(valid, flat, ~has & _gat(valid, flat))
+
+
+def _invalidate(ctx: SimContext, st: SimState, lba, on=None):
+    """The whole invalidate of each selected drive's page ``lba[d]``: the
+    counter half, then the valid-bit clear (the reference step's). Returns
+    (old_g, old_pm) as :func:`_invalidate_counts`."""
+    old_g, old_pm = _invalidate_counts(ctx, st, lba, on)
+    _clear_valid(ctx, st, old_pm)
+    return old_g, old_pm
+
+
+def _trim_page(ctx: SimContext, st: SimState, lba, on=None) -> None:
+    """The TRIM of each selected drive's page ``lba[d]``: the invalidate
+    counts, one ``apply_trim_`` launch (unmap, clear the valid bit) for
+    the batch, the killed slot tallied in its block's ``trim_dead``, and
+    ``n_trim``. A re-trim of an unmapped page counts in ``n_trim`` alone.
+    A TRIM frees space and completes no write: it has no heavy path."""
+    _, old_pm = _invalidate_counts(ctx, st, lba, on)
+    one = _ones_on(st, on)
+    apply_trim_(torch.stack([lba.to(torch.int32), old_pm, one], 1),
+                st.page_map, st.valid)
+    has = old_pm >= 0
+    _acc(st.trim_dead, old_pm.clamp(min=0).long() // ctx.geom.pages_per_block,
+         has.to(torch.int32))
+    st.n_trim.add_(one)
 
 
 # ---------------------------------------------------------------------------
@@ -540,6 +601,14 @@ def _bloom_query(ctx: SimContext, filt, lba, g):
     return (hit1 & hit2).reshape(h1.shape)
 
 
+def _bloom_in(ctx: SimContext, filt, lba, g):
+    """Whether each drive's ``lba[d]`` is in its group g[d]'s filter of
+    the batch's filters ``filt`` [D, G, bits]."""
+    h1, h2, bits = _bloom_hashes(ctx, lba)
+    flat = filt.view(filt.shape[0], -1)
+    return _gat(flat, g * bits + h1) & _gat(flat, g * bits + h2)
+
+
 def _bloom_update(ctx: SimContext, st: SimState, lba, g, on=None):
     """Insert each selected drive's ``lba[d]`` into its group g[d]'s active
     filter, and rotate the pair where the group's write count reaches its
@@ -590,6 +659,28 @@ def _target_group_app(ctx: SimContext, st: SimState, lba, cur_g, policy,
     return torch.where(promote, nb, cur_g)
 
 
+def _target_group_gc(ctx: SimContext, st: SimState, lba, cur_g, policy,
+                     on=None):
+    """Target group of each selected drive's GC migration of ``lba[d]``
+    out of cur_g[d] (the reference drain's, page by page): cur_g under the
+    static detector, and for a drive left out; the next colder group when
+    FDP's oracle rate is below half the group's assumed rate, or when the
+    page is in neither bloom filter. It reads the state as it is now."""
+    td = ctx.mcfg.td_mode
+    if td == "static":
+        return cur_g
+    if td == "fdp":
+        demote = (_gat(policy["page_rate"], lba)
+                  < 0.5 * _gat(policy["fdp_rate"], cur_g))
+    elif td == "bloom":
+        demote = (~_bloom_in(ctx, st.bloom_active, lba, cur_g)
+                  & ~_bloom_in(ctx, st.bloom_passive, lba, cur_g))
+    else:
+        raise ValueError(f"unknown td_mode {td!r}")
+    nb = _neighbor_colder(_hit_rates(st), st.grp_active, cur_g)
+    return torch.where(_and(demote, on), nb, cur_g)
+
+
 def _demote_flags(ctx: SimContext, st: SimState, lbas, g, policy):
     """The §5.6 GC demotion predicate over one drive's victim pages
     ``lbas`` [B]: FDP's oracle rate below half the group's assumed rate,
@@ -620,26 +711,6 @@ def _scatter_live(t: torch.Tensor, idx, vals, mask) -> None:
         (torch.where(mask, idx, fill_idx),),
         torch.where(mask, vals, fill_val).to(t.dtype),
     )
-
-
-def _erase_victim(st: SimState, victim, clock) -> None:
-    """Erase a drained victim: FREE, empty, stamped with ``clock``, one
-    more P-E cycle (Σe² gains (e+1)² − e²), its trimmed-slot tally
-    cleared. The group and pool counters are the caller's."""
-    e_old = _get(st.erase_count, victim)
-    _set(st.state, victim, FREE)
-    _set(st.group_of, victim, -1)
-    _set(st.fill, victim, 0)
-    _set(st.live, victim, 0)
-    _set(st.slot_lba, victim, -1)
-    _set(st.valid, victim, False)
-    _set(st.stamp, victim, clock)
-    st.clock.copy_(clock + 1)
-    st.n_erase.add_(1)
-    _add(st.erase_count, victim, 1)
-    _set(st.trim_dead, victim, 0)
-    st.erase_total.add_(1)
-    st.erase_sq_total.add_(2 * e_old + 1)
 
 
 def _demotion_targets(st: SimState, flagged: np.ndarray, g) -> torch.Tensor:
@@ -773,13 +844,68 @@ def _gc_drain_bulk(ctx: SimContext, st: SimState, victim, g, policy) -> None:
 
     # -- erase the victim ---------------------------------------------------
     st.grp_phys.add_(claim_ok.to(torch.int32))
-    _add(st.grp_phys, g, -1)
-    st.grp_surplus.copy_(surplus_of(st.grp_active, st.grp_phys, st.grp_alloc))
-    st.free_blocks.add_(1 - n_claimed)
+    st.free_blocks.sub_(n_claimed)
     st.mapped_pages.sub_(n_live - n_ok)
     st.n_mig.add_(n_ok)
     st.n_dropped.add_(n_live - n_ok)
-    _erase_victim(st, victim, clock)
+    st.clock.copy_(clock)
+    _erase_victims(st.batch, victim.reshape(1), g.reshape(1))
+
+
+def _gc_drain_reference(ctx: SimContext, st: SimState, victim, g, policy,
+                        on=None) -> None:
+    """Migrate each selected drive's ``victim[d]`` of group g[d] page by
+    page, then erase it (the JAX package's ``_gc_drain_reference``, the
+    oracle the bulk drains are held to). For each victim slot in order:
+    clear its valid bit and its block's live count where it is live, read
+    the page's target group from the state as it is now
+    (:func:`_target_group_gc`), take the page out of g's counts, and
+    append it through :func:`_write_page` as a migration, masked to the
+    drives whose slot is live. No read beyond the append's."""
+    b = ctx.geom.pages_per_block
+    d = st.n_drives
+    slot_lba, valid = st.slot_lba.view(d, -1), st.valid.view(d, -1)
+    # a drive left out may hold -1 (gc_one's out): any index will do
+    victim, g = victim.clamp(min=0), g.clamp(min=0)
+    base = victim * b
+    for j in range(b):
+        flat = base + j
+        lba = _gat(slot_lba, flat).clamp(min=0)  # dead slots hold -1
+        was = _gat(valid, flat)
+        live = _and(was, on)
+        _sca(valid, flat, was & ~live)
+        minus = -live.to(torch.int32)
+        _acc(st.live, victim, minus)
+        g_tgt = _target_group_gc(ctx, st, lba, g, policy, live)
+        _acc(st.grp_size, g, minus)
+        _acc(st.grp_live, g, minus)
+        st.mapped_pages.add_(minus)
+        _write_page(ctx, st, lba, g_tgt, live, migration=True)
+    _erase_victims(st, victim, g, on)
+
+
+def _erase_victims(st: SimState, victim, g, on=None) -> None:
+    """Erase each selected drive's drained ``victim[d]`` of group g[d]:
+    FREE, unlabelled, empty, stamped with the clock (which advances), one
+    more P-E cycle (Σe² gains (e+1)² − e²), its trimmed-slot tally
+    cleared, its group's block back in the pool."""
+    one = _ones_on(st, on)
+    e_old = _gat(st.erase_count, victim)
+    for t, v in ((st.state, FREE), (st.group_of, -1), (st.fill, 0),
+                 (st.live, 0), (st.stamp, st.clock), (st.trim_dead, 0)):
+        _sca(t, victim, v, on)
+    erased = (one > 0)[:, None]
+    _put_row(st.slot_lba, victim,
+             torch.where(erased, -1, _row(st.slot_lba, victim)))
+    _put_row(st.valid, victim, ~erased & _row(st.valid, victim))
+    st.clock.add_(one)
+    _acc(st.grp_phys, g, -one)
+    st.grp_surplus.copy_(surplus_of(st.grp_active, st.grp_phys, st.grp_alloc))
+    st.free_blocks.add_(one)
+    st.n_erase.add_(one)
+    _acc(st.erase_count, victim, one)
+    st.erase_total.add_(one)
+    st.erase_sq_total.add_((2 * e_old + 1) * one)
 
 
 def _gc_one(ctx: SimContext, st: SimState, policy, mode: str,
@@ -788,25 +914,34 @@ def _gc_one(ctx: SimContext, st: SimState, policy, mode: str,
     the group by ``mode`` ("gc": g[d], enabled when it needs a block it is
     not entitled to or the pool is at reserve; "valve": where the fewest
     live pages are, greedy weights; "movement": the most block-surplus
-    group), the victim, and the decision, all on the device. The static
-    detector's drain runs in the same launch, without a host read, and
-    with faults its erase goes through the retire hook there too. A
-    detector that can demote takes the general drain here, after one read
-    of the D decisions, drive by drive, then the hook as device ops."""
+    group), the victim, and the decision, all on the device. Under the
+    static detector with the bulk drain, the drain runs in the same
+    launch, without a host read, and with faults its erase goes through
+    the retire hook there too. Otherwise the launch only decides, and the
+    drain follows after one read of the D decisions: the reference drain
+    for every deciding drive at once, or a demoting bulk drain drive by
+    drive; then, with faults, the hook as device ops."""
     gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
     out = torch.empty((st.n_drives, 3), dtype=torch.int64, device=st.device)
+    drain = ctx.gc_impl == "bulk" and ctx.mcfg.td_mode == "static"
     faults = ({k: policy[k] for k in FAULT_POLICY} if ctx.with_faults
               else None)
     retries = ctx.mcfg.erase_max_retries
     gc_one_(st.drive_axis, gc_w, None if g is None else g.long(), out, on,
-            faults, mode=mode, td_mode=ctx.mcfg.td_mode,
-            gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks,
+            faults if drain else None, mode=mode, td_mode=ctx.mcfg.td_mode,
+            drain=drain, gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks,
             erase_max_retries=retries)
-    if ctx.mcfg.td_mode == "static":
+    if drain:
         return
-    for d in np.flatnonzero(_read(out[:, 2] != 0)).tolist():
+    do = out[:, 2] != 0
+    sel = _read(do)
+    if ctx.gc_impl == "reference" and sel.any():
+        _gc_drain_reference(ctx, st, out[:, 0], out[:, 1], policy,
+                            _on(sel, do))
+    for d in np.flatnonzero(sel).tolist():
         drive, pol = st.drive(d), drive_policy(policy, d)
-        _gc_drain_bulk(ctx, drive, out[d, 0], out[d, 1], pol)
+        if ctx.gc_impl == "bulk":
+            _gc_drain_bulk(ctx, drive, out[d, 0], out[d, 1], pol)
         if faults is not None:
             erase_fault_retire(drive, out[d, 0], out[d, 1], pol, retries)
 
@@ -1017,7 +1152,8 @@ def _step_tail(ctx: SimContext, st: SimState, lba, interval: bool, g,
     """GC → emergency valve → write → movement ops → §5.1 interval update:
     the heavy path of each selected drive, downstream of invalidate +
     target selection. ``interval``: the write completes a §5.1 interval
-    on every drive it acts on."""
+    on every drive it acts on (True) or on none (False); or a [D] mask of
+    the drives whose write completes one."""
     mcfg = ctx.mcfg
 
     # GC when the group needs a new block it is not entitled to, or the
@@ -1043,7 +1179,9 @@ def _step_tail(ctx: SimContext, st: SimState, lba, interval: bool, g,
     if mcfg.movement_ops:
         _gc_one(ctx, st, policy, "movement", on=on)
 
-    if interval:
+    if isinstance(interval, torch.Tensor):
+        _interval_update(ctx, st, policy, _and(interval, on))
+    elif interval:
         _interval_update(ctx, st, policy, on)
 
 
@@ -1076,6 +1214,73 @@ def _split_write(ctx: SimContext, st: SimState, lba, interval: bool, policy,
     _step_tail(ctx, st, lba, interval, g, policy, on)
 
 
+def _reference_write(ctx: SimContext, st: SimState, lba, interval, policy,
+                     on=None) -> None:
+    """The reference step's WRITE of each selected drive's ``lba[d]`` (the
+    JAX package's ``reference_write``): the whole invalidate, the
+    residence group (after a TRIM, the layout group), the target group
+    under every detector, then :func:`_step_tail` with ``interval`` as it
+    takes it."""
+    g, old_pm = _invalidate(ctx, st, lba, on)
+    if ctx.with_trim:
+        g = _resolve_group(st, g, old_pm >= 0, lba, policy["page_group0"])
+    old_g = g
+    g = _target_group_app(ctx, st, lba, old_g, policy, on)
+    g = torch.where(_gat(st.grp_active, g), g, old_g)
+    _step_tail(ctx, st, lba, interval, g, policy, on)
+
+
+def _scan_reference(ctx: SimContext, st: SimState, lbas, w0, policy, ops):
+    """:func:`scan_writes` with ``ctx.fast_path=False``: every event of
+    the D drives stepped in lock-step through the reference step, with no
+    ``write_run`` launch. The WRITE/TRIM choice comes from the op codes
+    on the host: the drives that TRIM take :func:`_trim_page`, those that
+    write :func:`_reference_write`, each as a masked pass. With faults a
+    degraded drive is masked out of both on the device (the JAX package's
+    ``_halt_wrap``) and only counts the event in ``n_halted``. A write
+    completes a §5.1 interval where the write clock reaches a multiple of
+    h (the event index on a pure-write stream, ``n_app`` on an op
+    stream: the same value for a drive in service)."""
+    e, h = ctx.trace_every, ctx.h
+    n_drives, n = lbas.shape
+    dev = st.device
+    if ops is None:
+        is_write = np.ones((n_drives, n), bool)
+    else:
+        is_write = np.asarray(ops) != OP_TRIM
+    # the per-drive masks, on the device once (a mask is never uploaded
+    # per event: the copy would wait for the stream), and the events, an
+    # event's D values contiguous
+    write_dev = torch.as_tensor(np.ascontiguousarray(is_write.T), device=dev)
+    lbas = lbas.t().contiguous()
+    app = torch.empty((n_drives, n // e), dtype=torch.int32, device=dev)
+    mig = torch.empty_like(app)
+    w = np.array(w0, np.int64).reshape(n_drives)  # a copy: updated here
+    for i in range(n):
+        lba = lbas[i]
+        writes = is_write[:, i]
+        ok = None
+        if ctx.with_faults:  # the halt guard
+            ok = st.drive_status == STATUS_OK
+            st.n_halted.add_((~ok).to(torch.int32))
+        if not writes.all():
+            _trim_page(ctx, st, lba, _and(~write_dev[i], ok)
+                       if writes.any() else ok)
+        if writes.any():
+            at = ((w + 1) % h == 0)[writes]
+            if at.all() or not at.any():
+                interval = bool(at.all())
+            else:  # a drive in service: n_app is its write clock
+                interval = (st.n_app + 1) % h == 0
+            on = ok if writes.all() else _and(write_dev[i], ok)
+            _reference_write(ctx, st, lba, interval, policy, on)
+        w += writes
+        if (i + 1) % e == 0:
+            app[:, i // e] = st.n_app
+            mig[:, i // e] = st.n_mig
+    return app, mig
+
+
 def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
                 w0, policy, ops=None):
     """Fold the step over the events ``lbas`` (a device tensor) — writes,
@@ -1086,7 +1291,9 @@ def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
     returns device tensors (app, mig) of length n // trace_every. A batch:
     ``st`` a batch of D drives, ``lbas`` [D, n], ``w0`` D write clocks,
     ``ops`` [D, n]; returns (app, mig) [D, n // trace_every]. ``policy``
-    is the batch's (:func:`stack_policies`), one row a drive.
+    is the batch's (:func:`stack_policies`), one row a drive. With
+    ``ctx.fast_path=False`` every event goes through the reference step
+    instead (:func:`_scan_reference`).
 
     Each round is one ``write_run_`` launch over every drive (each from
     its own next event), one read of where and why each stopped (tallied
@@ -1108,6 +1315,8 @@ def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
     n_drives, n = lbas.shape
     if n % e:
         raise ValueError(f"trace_every={e} must divide the segment length {n}")
+    if not ctx.fast_path:
+        return _scan_reference(ctx, st, lbas, w0, policy, ops)
     dev = st.device
     if ops is None:
         is_write, ops_dev = np.ones((n_drives, n), bool), None

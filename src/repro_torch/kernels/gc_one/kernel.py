@@ -1,7 +1,8 @@
 """ctypes binding of the GC kernel (``kernels/csrc/gc_one.cu``), which
-chooses a GC's group and victim, decides it and, under the static
-detector, drains the victim in one launch (and, given a fault policy,
-passes the erase through the retry-then-retire hook): the redesign, for the
+chooses a GC's group and victim, decides it and, asked to drain (the
+static detector's bulk drain), drains the victim in one launch (and, given
+a fault policy, passes the erase through the retry-then-retire hook); a
+call that does not drain only decides: the redesign, for the
 simulator's paths, of the Pallas TPU kernel ``compact_slots`` in
 ``repro/kernels/gc_compact/kernel.py`` together with the JAX package's
 ``_gc_one`` around it."""
@@ -84,20 +85,29 @@ def check_state(state) -> None:
         for name, (dtype, shape) in shapes.items()})
 
 
-def check_call(state, gc_w, g, out, *, mode, td_mode, enable=None,
+def check_call(state, gc_w, g, out, *, mode, td_mode, drain, enable=None,
                fault_policy=None, erase_max_retries=0) -> None:
     """Raise unless the rest of a call fits the checked ``state``: gc_w
     [D, 4] float32 (α, β, γ, τ); g [D] int64 in mode "gc", None in the
     others; out [D, 3] int64; enable [D] bool, or None (every drive);
-    fault_policy None, or :data:`FAULT_POLICY`'s tensors [D] with the
-    state's :data:`FAULT_FIELDS`; contiguous, on the state's device;
-    erase_max_retries 0-30."""
+    drain a bool, true only under the static detector (the kernel's drain
+    lands every page back in its group); fault_policy None, or, on a call
+    that drains, :data:`FAULT_POLICY`'s tensors [D] with the state's
+    :data:`FAULT_FIELDS` (the hook acts on a drain's erase); contiguous,
+    on the state's device; erase_max_retries 0-30."""
     if not 0 <= erase_max_retries <= 30:
         raise ValueError(f"gc_one: erase_max_retries={erase_max_retries}")
     if mode not in MODES:
         raise ValueError(f"gc_one: mode {mode!r} not in {MODES}")
     if td_mode not in TD_MODES:
         raise ValueError(f"gc_one: td_mode {td_mode!r} not in {TD_MODES}")
+    if not isinstance(drain, bool) or (drain and td_mode != "static"):
+        raise ValueError(f"gc_one: drain={drain!r} under td_mode "
+                         f"{td_mode!r} (the kernel drains the static "
+                         "detector's GCs only)")
+    if fault_policy is not None and not drain:
+        raise ValueError("gc_one: a fault policy on a call that only "
+                         "decides (the hook acts on a drain's erase)")
     if (g is None) != (mode != "gc"):
         raise ValueError(f"gc_one: mode {mode!r} takes "
                          + ("g [D]" if mode == "gc" else "no g"))
@@ -125,13 +135,14 @@ def check_call(state, gc_w, g, out, *, mode, td_mode, enable=None,
 
 
 def check_args(state, gc_w, g, out, enable=None, fault_policy=None, *,
-               mode, td_mode, gc_reserve_blocks, erase_max_retries=0) -> None:
+               mode, td_mode, drain, gc_reserve_blocks,
+               erase_max_retries=0) -> None:
     """Raise unless the arguments are what the kernel takes
     (:func:`check_state`, :func:`check_call`; gc_reserve_blocks: any
     int)."""
     del gc_reserve_blocks
     check_state(state)
-    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode,
+    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode, drain=drain,
                enable=enable, fault_policy=fault_policy,
                erase_max_retries=erase_max_retries)
 
@@ -156,15 +167,16 @@ def _state_pointers(state) -> list:
 
 
 def gc_one_cuda(state, gc_w, g, out, enable=None, fault_policy=None, *,
-                mode, td_mode, gc_reserve_blocks, erase_max_retries=0) -> None:
+                mode, td_mode, drain, gc_reserve_blocks,
+                erase_max_retries=0) -> None:
     """Launch the kernel on the current stream: one GC per enabled drive,
-    decided (and under the static detector drained, its erase through the
-    fault hook when ``fault_policy`` is given) on the card, in place;
-    writes (victim, g, do) into ``out``, (-1, -1, 0) for a drive that
-    ``enable`` leaves out."""
+    decided (and with ``drain`` drained, its erase through the fault hook
+    when ``fault_policy`` is given) on the card, in place; writes (victim,
+    g, do) into ``out``, (-1, -1, 0) for a drive that ``enable`` leaves
+    out."""
     global launches
     state_ptrs = _state_pointers(state)
-    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode,
+    check_call(state, gc_w, g, out, mode=mode, td_mode=td_mode, drain=drain,
                enable=enable, fault_policy=fault_policy,
                erase_max_retries=erase_max_retries)
     if not out.is_cuda:
@@ -184,7 +196,7 @@ def gc_one_cuda(state, gc_w, g, out, enable=None, fault_policy=None, *,
         state["page_map"].shape[-1], k, b, state["grp_size"].shape[-1],
         gc_reserve_blocks, erase_max_retries)
     err = fn(ptrs, len(ORDER), dims, len(dims), n_drives, MODES.index(mode),
-             int(td_mode == "static"),
+             int(drain),
              torch.cuda.current_stream(out.device).cuda_stream)
     _build.check_launch("gc_one", err)
     launches += 1

@@ -1,5 +1,5 @@
-"""Public op: one GC per drive (group, victim, decision and, under the
-static detector, the drain), dispatched on the tensors' device.
+"""Public op: one GC per drive (group, victim, decision and, when asked,
+the static detector's drain), dispatched on the tensors' device.
 
 CUDA tensors go to the hand-written kernel, CPU tensors to its plain
 version; there is no fallback from one to the other.
@@ -15,14 +15,14 @@ def gc_one_(state, gc_w, g, out, enable=None, fault_policy=None, **mode):
     """In place: one GC per drive that ``enable`` [D] enables (None:
     every drive), choosing the group by ``mode`` ("gc": the group
     ``g[d]``; "valve"; "movement"), the victim by the weights ``gc_w[d]``,
-    and deciding it; under ``td_mode="static"`` the victim is drained too,
-    and with ``fault_policy`` (per-drive rates, endurance limit and seed)
-    its erase may fail and retire the block.
+    and deciding it; with ``drain`` (the static detector's bulk drain)
+    the victim is drained too, and with ``fault_policy`` (per-drive rates,
+    endurance limit and seed) its erase may fail and retire the block.
     ``out[d] = (victim, g, do)``; a drive left out keeps its state and gets
     ``(-1, -1, 0)``. See
     ``kernels/csrc/gc_one.cu`` for the contract and ``kernel.check_args``
-    for the arguments; ``mode`` is mode, td_mode, gc_reserve_blocks and
-    erase_max_retries."""
+    for the arguments; ``mode`` is mode, td_mode, drain, gc_reserve_blocks
+    and erase_max_retries."""
     args = (state, gc_w, g, out, enable, fault_policy)
     if out.is_cuda:
         gc_one_cuda(*args, **mode)  # checks its args

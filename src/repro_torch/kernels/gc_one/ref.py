@@ -6,9 +6,9 @@ does (the given g, enabled when it needs a block it is not entitled to or
 the pool is at reserve; the emergency valve's group of the CLOSED block
 with the fewest live pages; the movement operation's group of the largest
 surplus), its victim by the weighted score (:func:`select_victim`), and
-decides; under the static detector a decided GC drains the victim
-(:func:`drain_static`) and, with a fault policy, the erase goes through the
-retry-then-retire hook (:func:`erase_fault_retire`). ``out[d] = (victim,
+decides; asked to drain (the static detector's bulk drain), a decided GC
+drains the victim (:func:`drain_static`) and, with a fault policy, the
+erase goes through the retry-then-retire hook (:func:`erase_fault_retire`). ``out[d] = (victim,
 g, do)``. A drive that ``enable`` leaves out is not touched: ``out[d] =
 (-1, -1, 0)``.
 
@@ -291,11 +291,14 @@ def erase_fault_retire(s, victim, g, policy, erase_max_retries: int) -> None:
 
 
 def gc_one_ref(state, gc_w, g, out, enable=None, fault_policy=None, *, mode,
-               td_mode, gc_reserve_blocks, erase_max_retries=0) -> None:
+               td_mode, drain, gc_reserve_blocks,
+               erase_max_retries=0) -> None:
     """In place, the arguments of ``gc_one_cuda`` (see
     ``kernel.check_args``): each enabled drive's GC, one drive after
-    another; with ``fault_policy`` (the :data:`FAULT_POLICY` tensors [D])
-    each static drain's erase goes through :func:`erase_fault_retire`."""
+    another, decided and, with ``drain``, drained; with ``fault_policy``
+    (the :data:`FAULT_POLICY` tensors [D]) each drain's erase goes through
+    :func:`erase_fault_retire`."""
+    del td_mode  # the drain lands every page back in its group
     for d in range(out.shape[0]):
         if enable is not None and not bool(enable[d]):
             out[d] = torch.tensor([-1, -1, 0], device=out.device)
@@ -305,7 +308,7 @@ def gc_one_ref(state, gc_w, g, out, enable=None, fault_policy=None, *, mode,
             s, gc_w[d], None if g is None else int(g[d]), mode=mode,
             gc_reserve_blocks=gc_reserve_blocks)
         out[d] = torch.tensor([victim, grp, int(do)], device=out.device)
-        if do and td_mode == "static":
+        if do and drain:
             drain_static(s, victim, grp)
             if fault_policy is not None:
                 erase_fault_retire(

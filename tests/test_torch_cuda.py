@@ -298,7 +298,7 @@ def test_gc_one_kernel_matches_plain_version(cuda, td_mode, mode, d):
     args = dict(state=state, gc_w=gc_w.repeat(d, 1),
                 g=g if mode == "gc" else None,
                 out=torch.full((d, 3), -9, dtype=torch.int64))
-    kw = dict(mode=mode, td_mode=td_mode,
+    kw = dict(mode=mode, td_mode=td_mode, drain=td_mode == "static",
               gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
 
     def on(device):
@@ -326,6 +326,85 @@ def test_gc_one_kernel_matches_plain_version(cuda, td_mode, mode, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("mode", ["gc", "valve", "movement"])
+def test_gc_one_kernel_decides_without_draining(cuda, mode, d):
+    """Under the static detector with ``drain=False`` (the reference
+    drain's call): from a Table-2 state, the kernel and gc_one_ref write
+    the same out, GCs are decided, and the state is left untouched."""
+    ctx, st, policy, _ = _table2_drive("static", False)
+    b = TABLE2.pages_per_block
+    state = {k: (v.view(1) if k in gc_one_kernel.COUNTERS else v[None])
+             for k, v in ((k, getattr(st, k).cpu())
+                          for k in gc_one_kernel.STATE_FIELDS)}
+    state = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
+             for k, v in state.items()}
+    g = torch.arange(d) % ctx.n_groups
+    if mode == "gc":
+        for i in range(d):
+            state["fill"][i, int(state["active_blk"][i, g[i]])] = b
+            state["grp_alloc"][i, g[i]] = 0
+    gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"].cpu()
+    args = dict(state=state, gc_w=gc_w.repeat(d, 1),
+                g=g if mode == "gc" else None,
+                out=torch.full((d, 3), -9, dtype=torch.int64))
+    kw = dict(mode=mode, td_mode="static", drain=False,
+              gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
+
+    def on(device):
+        return {k: None if v is None else (
+            {kk: vv.to(device, copy=True) for kk, vv in v.items()}
+            if isinstance(v, dict) else v.to(device, copy=True))
+            for k, v in args.items()}
+
+    got, want = on(cuda), on("cpu")
+    gc_one_kernel.gc_one_cuda(**got, **kw)
+    torch.cuda.synchronize()
+    gc_one_ref.gc_one_ref(**want, **kw)
+    assert torch.equal(got["out"].cpu(), want["out"])
+    assert mode == "movement" or bool(want["out"][:, 2].all())
+    for k, v in args["state"].items():
+        assert torch.equal(got["state"][k].cpu(), v), k
+        assert torch.equal(want["state"][k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["reference", "reference_drain"])
+@pytest.mark.parametrize("preset,workload", [
+    ("wolf", "two_modal"), ("fdp", "swap"),
+    ("wolf_trim_aware", "tpcc_churn")])
+def test_card_reference_engine_matches_cpu(cuda, preset, workload, engine):
+    """The reference engine (every event stepped alone, each GC drained
+    page by page; or only the drain, on the split step) at Geometry(4,
+    32, 8): the card run equals the CPU run bit for bit, and so does the
+    split engine's card run; TRIMs land through apply_trim one launch an
+    event, and no run goes through write_run on the reference step."""
+    geom = Geometry(4, 32, 8)
+    lba = geom.lba_pages
+    phases = {"two_modal": [workloads.two_modal(lba, 2000)],
+              "swap": list(workloads.swap_phases(lba, 1000)),
+              "tpcc_churn": [workloads.tpcc_churn(lba, 2000)]}[workload]
+    mcfg = getattr(managers, preset)()
+    kw = dict(seed=3, gc_impl="reference",
+              fast_path=engine == "reference_drain")
+    n = (wr_kernel.launches, wp_kernel.trim_launches)
+    card = managers.simulate(geom, mcfg, phases, device="cuda", **kw)
+    runs, trims = wr_kernel.launches - n[0], wp_kernel.trim_launches - n[1]
+    if engine == "reference":
+        assert runs == 0 and trims == int(card.state.n_trim)
+    else:
+        assert runs > 0 and trims == 0
+    host = managers.simulate(geom, mcfg, phases, device="cpu", **kw)
+    split = managers.simulate(geom, mcfg, phases, seed=3, device="cuda")
+    for other in (host, split):
+        np.testing.assert_array_equal(card.app, other.app)
+        np.testing.assert_array_equal(card.mig, other.mig)
+        for name, v in card.state.items():
+            assert torch.equal(v.cpu(), other.state[name].cpu()), name
+    assert_invariants(card.state)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["gc", "valve", "movement"])
 @pytest.mark.parametrize("td_mode", ["static", "fdp"])
 def test_gc_one_kernel_with_enable_matches_plain_version(cuda, td_mode,
@@ -350,7 +429,7 @@ def test_gc_one_kernel_with_enable_matches_plain_version(cuda, td_mode,
     args = dict(state=state, gc_w=gc_w.repeat(d, 1),
                 g=g if mode == "gc" else None, enable=enable,
                 out=torch.full((d, 3), -9, dtype=torch.int64))
-    kw = dict(mode=mode, td_mode=td_mode,
+    kw = dict(mode=mode, td_mode=td_mode, drain=td_mode == "static",
               gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
 
     def on(device):
@@ -410,7 +489,7 @@ def test_gc_one_kernel_with_faults_matches_plain_version(cuda, d, retries):
     args = dict(state=state, gc_w=policy["gc_w"].cpu().repeat(d, 1), g=g,
                 out=torch.full((d, 3), -9, dtype=torch.int64),
                 fault_policy=_fault_policy(d))
-    kw = dict(mode="gc", td_mode="static",
+    kw = dict(mode="gc", td_mode="static", drain=True,
               gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks,
               erase_max_retries=retries)
 

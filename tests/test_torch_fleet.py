@@ -171,11 +171,22 @@ def test_result_views_do_not_alias_across_drives(grid):
 
 
 def test_reference_engine_and_faults_are_refused():
-    specs = specs_of(GRID[:1])
-    with pytest.raises(NotImplementedError):
-        fleet.simulate_fleet(Geometry(*GEOM), specs, gc_impl="reference",
+    """Neither is refused any more: the reference drain runs (a fleet of
+    it equals the bulk fleet), and so does a faulty fleet (its drive
+    equals its run alone); an unknown drain and uneven streams are."""
+    specs = specs_of(GRID[:2])
+    for fast_path in (True, False):
+        ref = run_port(GRID[:2], gc_impl="reference", fast_path=fast_path)
+        bulk = run_port(GRID[:2])
+        np.testing.assert_array_equal(ref.app, bulk.app)
+        np.testing.assert_array_equal(ref.mig, bulk.mig)
+        for i in range(len(specs)):
+            for key, v in bulk.state(i).items():
+                assert torch.equal(ref.state(i)[key], v), (fast_path, key)
+    with pytest.raises(ValueError):
+        fleet.simulate_fleet(Geometry(*GEOM), specs, gc_impl="per_page",
                              device="cpu")
-    # a faulty fleet now runs: its drive equals its run alone
+    # a faulty fleet runs: its drive equals its run alone
     faulty = [fleet.DriveSpec(managers.wolf(fault_rate=0.1), specs[0].phases,
                               seed=specs[0].seed)]
     res = fleet.simulate_fleet(Geometry(*GEOM), faulty, sampler="numpy",

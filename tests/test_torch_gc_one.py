@@ -254,6 +254,7 @@ def _args(ctx, states, policy, mode, g=None, gc_w=None):
         g=None if g is None else torch.as_tensor(g, dtype=torch.int64),
         out=torch.full((d, 3), -9, dtype=torch.int64),
     ), dict(mode=mode, td_mode=ctx.mcfg.td_mode,
+            drain=ctx.mcfg.td_mode == "static",
             gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
 
 

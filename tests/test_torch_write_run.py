@@ -25,7 +25,7 @@ from repro_torch import convert
 from repro_torch.core import managers, simulator, workloads
 from repro_torch.core.simulator import _add, _gat, _get
 from repro_torch.core.ssd import Geometry
-from repro_torch.kernels.write_path.ops import apply_trim_, apply_write_
+from repro_torch.kernels.write_path.ops import apply_write_
 from repro_torch.kernels.write_run import kernel as wr_kernel
 from repro_torch.kernels.write_run import ops as wr_ops
 
@@ -113,19 +113,11 @@ def _on_to_a_run(ctx, st, policy, lbas, ops, longer_than):
 
 
 def _trim_page(ctx, st, lba):
-    """The per-event TRIM: the invalidate counts, then one fused
-    ``apply_trim`` (unmap, clear the valid bit), ``trim_dead`` and
-    ``n_trim``; a re-trim of an unmapped page changes nothing but
-    ``n_trim``."""
-    _, old_pm = simulator._invalidate_counts(ctx, st.batch, lba[None])
-    old_pm = old_pm[0]
-    row = torch.stack([lba.to(torch.int32), old_pm,
-                       torch.ones((), dtype=torch.int32)])[None]
-    apply_trim_(row, st.page_map[None], st.valid[None])
-    has = old_pm >= 0
-    blk = old_pm.clamp(min=0).long() // ctx.geom.pages_per_block
-    _add(st.trim_dead, blk, has.to(torch.int32))
-    st.n_trim.add_(1)
+    """The per-event TRIM (the simulator's, on the drive as a batch of
+    one): the invalidate counts, then one fused ``apply_trim`` (unmap,
+    clear the valid bit), ``trim_dead`` and ``n_trim``; a re-trim of an
+    unmapped page changes nothing but ``n_trim``."""
+    simulator._trim_page(ctx, st.batch, lba[None])
 
 
 def _step_write(ctx, st, lba, w, policy):
