@@ -20,7 +20,11 @@ Phases, one JSON line each; any failed check exits non-zero:
   kernels     each hand-written kernel against its plain PyTorch version on
               random valid inputs: the simulator's three at Table-2 widths,
               for one drive and for 64, equal (integers, exact); the serving
-              path's three at internlm2-1.8b's full width in fp32 and bf16:
+              path's three at internlm2-1.8b's full width in fp32 and bf16
+              (and at olmoe-1b-7b's: paged_attention at G = 1 over 16 KV
+              heads, gc_compact at 16 KV heads; flash_attention at
+              mixtral-8x22b's G = 6 with its 4,096 window over 4,608
+              positions, and at llava-next-34b's G = 7):
               gc_compact exactly, paged_attention and flash_attention within
               1e-5 (fp32) and 2e-2 (bf16); times over CUDA events, with the
               least time the card could take (bytes over HBM, or operations
@@ -125,12 +129,35 @@ Phases, one JSON line each; any failed check exits non-zero:
               (steps, appended, copied, every move list) must equal the same
               request set's at smoke width on the CPU, every block must be
               free at the end, and every logit finite;
+  serve_moe   the same engine, request set and checks on olmoe-1b-7b
+              (arXiv:2409.02060) at its full published width and depth in
+              bf16 (16 layers, 64 experts, top-8: each prefill takes the
+              MoE capacity path, one group of 256 tokens with 40 slots an
+              expert, each decode step the exact dense path;
+              paged_attention at G = 1 over 16 KV heads); the control
+              plane is held to the same CPU smoke run as serve_full_width
+              (made once a call: the manager never sees the model);
   dense_vs_paged  internlm2-1.8b at full width in fp32: two 512-token prompts
               through the dense prefill (the flash kernel) and the paged
               prefill, four decode steps on both, then scattered evictions,
               a compaction (the gc_compact kernel) and one more decode
               against the dense cache with the evicted positions masked:
               logits must agree within 2e-3 at every step;
+  vlm_prefill llava-next-34b at full width in fp32, 8 of its 60 layers:
+              two sequences of 512 stub patch embeddings and 1,536 text
+              tokens (_seq_split of 2,048) prefilled with decode headroom
+              (the flash kernel at G = 7), four decode steps, each step's
+              logits within 2e-3 of the last-token logits of a prefill over
+              the sequence extended to that token;
+  moe_layer   one MoE layer at olmoe-1b-7b's full width (d 2048, f 1024, 64
+              experts, top-8) in fp32 and bf16, and at mixtral-8x22b's
+              (d 6144, f 16384, 8 experts, top-2) in fp32, weights made on
+              the card: routed once on the CPU, that routing through the
+              capacity path (T = 256, and T = 600 with 168 pad rows) or the
+              dense path (T = 32) on the card and on the CPU, which must
+              keep the same (token, choice) pairs and agree within 1e-5
+              (fp32) or 2e-2 (bf16); how many tokens' top-k sets the card's
+              own routing changes is reported, not checked;
   allocation  optimal_allocation and hillclimb_allocation for
               full_width's drive (two halves of the logical pages, updated
               0.9 / 0.1, over its OP) on the card and on the CPU: card =
@@ -141,7 +168,8 @@ Phases, one JSON line each; any failed check exits non-zero:
               and of the serving engine under torch.profiler: device busy
               time against wall time (the idle share), kernels per event,
               the kernels that take the most device time, and in the decode
-              window paged_attention's device time and share of busy time.
+              windows (serve_full_width's and serve_moe's engines)
+              paged_attention's device time and share of busy time.
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -400,6 +428,12 @@ SERVE_PROMPT = 256
 # 48 requests of 256 new tokens: shorter sets never fill the pool enough
 # for the h2o churn to compact (checked on the CPU at smoke width)
 SERVE_REQUESTS, SERVE_NEW = 48, 256
+# the MoE serving path (serve_moe: olmoe-1b-7b at full width and depth in
+# bf16, behind the same engine and request set) and the VLM prefill
+# (vlm_prefill: llava-next-34b at full width in fp32, 8 of its 60 layers,
+# ~22 GB of weights, two sequences of 2,048 positions)
+MOE_ARCH = "olmoe-1b-7b"
+VLM_ARCH, VLM_LAYERS, VLM_SEQ = "llava-next-34b", 8, 2048
 
 
 def serve_kv(cfg) -> dict:
@@ -465,176 +499,236 @@ def row_rel_err(got, want) -> float:
     return (err / want.abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
-def serving_kernels(torch, args, card):
-    """The serving path's three kernels at full width, fp32 and bf16."""
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ROW_TOL = 2e-2  # bf16: each row within 2% of its own largest value
+
+
+def gc_case(torch, rng, dtype, kv, case, iters, card):
+    """gc_compact_cuda against gc_compact_ref on one move list over the
+    pools ``kv`` (the hazard rows staged where sources overlap)."""
+    from repro_torch.kernels.gc_compact import kernel as gc_kernel
+    from repro_torch.kernels.gc_compact.kernel import gc_compact_cuda
+    from repro_torch.kernels.gc_compact.ref import gc_compact_ref
+
+    tname = str(dtype).split(".")[1]
+    esize = torch.finfo(dtype).bits // 8
+    pools, moves = gc_inputs(torch, rng, dtype, kv,
+                             disjoint=case == "disjoint")
+    outs = []
+    for fn in (gc_compact_cuda, gc_compact_ref):
+        got = [t.clone() for t in pools]
+        n0 = gc_kernel.kv_device_launches
+        fn(*got, moves)
+        torch.cuda.synchronize()
+        outs.append(got)
+        if fn is gc_compact_cuda:
+            device_launches = gc_kernel.kv_device_launches - n0
+    err = max((x.float() - y.float()).abs().max().item()
+              for x, y in zip(*outs))
+    check(err == 0, f"gc_compact {tname} {case} Hkv {kv['kv_heads']}: "
+          f"kernel != plain (max {err})")
+    del outs
+    _, n_hazard = gc_kernel.plan_moves(moves, kv["blocks"], kv["page"])
+    check(device_launches == 1 + (n_hazard > 0)
+          and (n_hazard == 0) == (case == "disjoint"),
+          f"gc_compact {tname} {case}: {device_launches} launches "
+          f"for {n_hazard} hazard rows")
+    live = int((moves[:, 0] >= 0).sum())
+    row = kv["kv_heads"] * kv["d_head"] * esize
+    # each live move reads and writes one slot of K and V per layer; the
+    # move list is read once
+    nbytes = 2 * 2 * kv["layers"] * live * row + 16 * len(moves)
+    line = {
+        "phase": "kernels", "name": "gc_compact", "dtype": tname,
+        "case": case, **kv, "moves": len(moves), "live_moves": live,
+        "hazard_rows": n_hazard, "device_launches": device_launches,
+        "equal": True, "max_abs_err": err,
+        # the host plans and uploads the list: ~0.5 ms of sleep a call
+        # keeps the card queued behind it
+        **time_both(torch, "kernel_ms", lambda: gc_compact_cuda(
+            *pools, moves), iters, sleep_cycles=1_000_000),
+        # the copy kernels alone, and the list's upload, on the card's own
+        # clock
+        **device_ms(torch, lambda: gc_compact_cuda(*pools, moves), iters,
+                    {"device_ms": "gc_compact_kernel",
+                     "upload_device_ms": "Memcpy HtoD"}),
+        "plain_ms": time_ms(
+            torch, lambda: gc_compact_ref(*pools, moves), iters),
+        "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None, "card": card,
+    }
+    # the rate of the card's own time (queued)
+    line["gb_per_s"] = nbytes / line["kernel_ms_queued"] / 1e6
+    emit(line)
+    return line
+
+
+def paged_case(torch, rng, dtype, kv, hq, iters, card, cold: bool):
+    """paged_attention_cuda against paged_attention_ref at the serving
+    path's batch and table width over the pool ``kv``, with holes; with
+    ``cold`` also timed with L2 cold, rotating over four pool pairs."""
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_cuda,
+    )
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    tname = str(dtype).split(".")[1]
+    esize = torch.finfo(dtype).bits // 8
+    q, (kp, vp), rest = paged_inputs(torch, rng, dtype, kv,
+                                     SERVE["max_batch"], hq,
+                                     SERVE["max_pages_per_seq"])
+    got = paged_attention_cuda(q, kp, vp, *rest)
+    want = paged_attention_ref(q, kp, vp, *rest)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(got, want)
+    check(err <= ATTN_TOL[tname] and (tname == "float32" or rel <= ROW_TOL),
+          f"paged_attention {tname} Hq {hq} / Hkv {kv['kv_heads']}: kernel "
+          f"vs plain {err} (abs), {rel} (row-relative)")
+    tables, lengths = rest[0].cpu(), rest[1].cpu()
+    starts = torch.arange(tables.shape[1])[None] * kv["page"]
+    pages = int(((tables >= 0) & (starts < lengths[:, None])).sum())
+    page_bytes = kv["page"] * kv["kv_heads"] * kv["d_head"] * esize
+    # K and V of every page read (each its own block), q in and out,
+    # tables, lengths, holes
+    nbytes = (2 * pages * page_bytes + 2 * q.numel() * esize
+              + 4 * tables.numel() + 4 * len(lengths) + rest[2].numel())
+    line = {
+        "phase": "kernels", "name": "paged_attention", "dtype": tname,
+        "batch": q.shape[0], "q_heads": hq, "group": hq // kv["kv_heads"],
+        **kv, "max_pages": tables.shape[1], "pages_read": pages,
+        "max_abs_err": err, "max_row_rel_err": rel,
+        **time_both(torch, "kernel_ms", lambda: paged_attention_cuda(
+            q, kp, vp, *rest), iters),
+    }
+    if cold:
+        # three more pool pairs: four pairs are four times the L2 in bf16,
+        # as the serving path's 24 layers are
+        pools = [(kp, vp)] + [tuple(
+            torch.randn_like(kp) for _ in range(2)) for _ in range(3)]
+        pairs = itertools.cycle(pools)
+        line.update(time_both(
+            torch, "kernel_ms_cold",
+            lambda: paged_attention_cuda(q, *next(pairs), *rest), iters))
+        line["cold_pool_gb"] = sum(t.numel() * t.element_size()
+                                   for pair in pools for t in pair) / 1e9
+        del pools, pairs
+    line.update({
+        "plain_ms": time_ms(
+            torch, lambda: paged_attention_ref(q, kp, vp, *rest), iters),
+        "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None, "card": card,
+    })
+    # the rates of the card's own time (queued)
+    line["gb_per_s"] = nbytes / line["kernel_ms_queued"] / 1e6
+    if cold:
+        line["gb_per_s_cold"] = nbytes / line["kernel_ms_cold_queued"] / 1e6
+    emit(line)
+    return line
+
+
+def causal_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal pass over s positions scores, with a
+    sliding window (0 = full)."""
+    w = window or s
+    return w * (w + 1) // 2 + (s - w) * w if s >= w else s * (s + 1) // 2
+
+
+def flash_case(torch, dtype, hq, hkv, d, s, window, iters, card, arch):
+    """flash_attention_cuda against flash_attention_ref, causal, at one
+    sequence of s positions, beside PyTorch's scaled_dot_product_attention
+    (with the window as a mask where there is one)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.gc_compact import kernel as gc_kernel
-    from repro_torch.kernels.gc_compact.kernel import gc_compact_cuda
-    from repro_torch.kernels.gc_compact.ref import gc_compact_ref
-    from repro_torch.kernels.paged_attention.kernel import (
-        paged_attention_cuda,
-    )
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    tname = str(dtype).split(".")[1]
+    esize = torch.finfo(dtype).bits // 8
+    q, k, v = flash_inputs(torch, dtype, hq, hkv, d, s=s)
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = flash_attention_ref(q, k, v, causal=True, window=window)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(got, want)
+    check(err <= ATTN_TOL[tname] and (tname == "float32" or rel <= ROW_TOL),
+          f"flash_attention {tname} G {hq // hkv} window {window}: kernel vs "
+          f"plain {err} (abs), {rel} (row-relative)")
+    del got, want
+    b = q.shape[0]
+    # the scored pairs' two products (Q.K and P.V), 2 flops per MAC
+    flops = 4 * b * hq * d * causal_pairs(s, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+              "operations": flops / PEAK_FLOPS[tname] * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window:
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+    line = {
+        "phase": "kernels", "name": "flash_attention", "dtype": tname,
+        "arch": arch, "batch": b, "seq": s, "q_heads": hq, "kv_heads": hkv,
+        "group": hq // hkv, "d_head": d, "causal": True, "window": window,
+        "max_abs_err": err, "max_row_rel_err": rel,
+        **time_both(torch, "kernel_ms", lambda: flash_attention_cuda(
+            q, k, v, causal=True, window=window), iters),
+        "plain_ms": time_ms(
+            torch, lambda: flash_attention_ref(q, k, v, causal=True,
+                                               window=window), iters),
+        "bytes": nbytes, "flops": flops, "bound_ms": bounds[bound_by],
+        "bound_by": bound_by,
+        **time_both(torch, "library_ms", library, iters),
+        "card": card,
+    }
+    # the rate of the card's own time (queued)
+    line["tflops"] = flops / line["kernel_ms_queued"] / 1e9
+    emit(line)
+    return line
+
+
+def serving_kernels(torch, args, card):
+    """The serving paths' three kernels at full width, fp32 and bf16:
+    internlm2-1.8b's shapes (the summary's timed cases), olmoe-1b-7b's
+    (paged_attention at G = 1 over 16 KV heads, gc_compact at 16 KV heads)
+    and the flash kernel at mixtral-8x22b's G = 6 with its 4,096 window
+    over 4,608 positions and llava-next-34b's G = 7."""
     from repro_torch.models.registry import get_config
 
-    cfg = get_config(SERVE_ARCH)
-    kv = serve_kv(cfg)
+    cfg, moe_cfg = get_config(SERVE_ARCH), get_config(MOE_ARCH)
+    kv, moe_kv = serve_kv(cfg), serve_kv(moe_cfg)
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
     iters = max(10, args.iters // 20)
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    row_tol = 2e-2  # bf16: each row within 2% of its own largest value
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         tname = str(dtype).split(".")[1]
-        esize = torch.finfo(dtype).bits // 8
-
         for case in ("overlapping", "disjoint"):
-            pools, moves = gc_inputs(torch, rng, dtype, kv,
-                                     disjoint=case == "disjoint")
-            outs = []
-            for fn in (gc_compact_cuda, gc_compact_ref):
-                got = [t.clone() for t in pools]
-                n0 = gc_kernel.kv_device_launches
-                fn(*got, moves)
-                torch.cuda.synchronize()
-                outs.append(got)
-                if fn is gc_compact_cuda:
-                    device_launches = gc_kernel.kv_device_launches - n0
-            err = max((x.float() - y.float()).abs().max().item()
-                      for x, y in zip(*outs))
-            check(err == 0, f"gc_compact {tname} {case}: kernel != plain "
-                  f"(max {err})")
-            del outs
-            _, n_hazard = gc_kernel.plan_moves(moves, kv["blocks"],
-                                               kv["page"])
-            check(device_launches == 1 + (n_hazard > 0)
-                  and (n_hazard == 0) == (case == "disjoint"),
-                  f"gc_compact {tname} {case}: {device_launches} launches "
-                  f"for {n_hazard} hazard rows")
-            live = int((moves[:, 0] >= 0).sum())
-            row = kv["kv_heads"] * kv["d_head"] * esize
-            # each live move reads and writes one slot of K and V per
-            # layer; the move list is read once
-            nbytes = 2 * 2 * kv["layers"] * live * row + 16 * len(moves)
-            line = {
-                "phase": "kernels", "name": "gc_compact", "dtype": tname,
-                "case": case, **kv, "moves": len(moves), "live_moves": live,
-                "hazard_rows": n_hazard, "device_launches": device_launches,
-                "equal": True, "max_abs_err": err,
-                # the host plans and uploads the list: ~0.5 ms of sleep a
-                # call keeps the card queued behind it
-                **time_both(torch, "kernel_ms", lambda: gc_compact_cuda(
-                    *pools, moves), iters, sleep_cycles=1_000_000),
-                # the copy kernels alone, and the list's upload, on the
-                # card's own clock
-                **device_ms(torch, lambda: gc_compact_cuda(*pools, moves),
-                            iters, {"device_ms": "gc_compact_kernel",
-                                    "upload_device_ms": "Memcpy HtoD"}),
-                "plain_ms": time_ms(
-                    torch, lambda: gc_compact_ref(*pools, moves), iters),
-                "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes", "library_ms": None, "card": card,
-            }
-            # the rate of the card's own time (queued)
-            line["gb_per_s"] = nbytes / line["kernel_ms_queued"] / 1e6
-            emit(line)
-            results[("gc_compact", tname, case)] = line
-            del pools
-
-        q, (kp, vp), rest = paged_inputs(
-            torch, rng, dtype, kv, SERVE["max_batch"], cfg.n_heads,
-            SERVE["max_pages_per_seq"])
-        # three more pool pairs for the cold-L2 rotation: four pairs are
-        # four times the L2 in bf16, as the serving path's 24 layers are
-        cold = [(kp, vp)] + [tuple(
-            torch.randn_like(kp) for _ in range(2)) for _ in range(3)]
-        pairs = itertools.cycle(cold)
-
-        def cold_call():
-            paged_attention_cuda(q, *next(pairs), *rest)
-
-        got = paged_attention_cuda(q, kp, vp, *rest)
-        want = paged_attention_ref(q, kp, vp, *rest)
-        err = (got.float() - want.float()).abs().max().item()
-        rel = row_rel_err(got, want)
-        check(err <= tol[dtype] and (dtype == torch.float32 or rel <= row_tol),
-              f"paged_attention {tname}: kernel vs plain {err} (abs), "
-              f"{rel} (row-relative)")
-        tables, lengths = rest[0].cpu(), rest[1].cpu()
-        starts = torch.arange(tables.shape[1])[None] * kv["page"]
-        pages = int(((tables >= 0) & (starts < lengths[:, None])).sum())
-        page_bytes = kv["page"] * kv["kv_heads"] * kv["d_head"] * esize
-        # K and V of every page read (each its own block), q in and out,
-        # tables, lengths, holes
-        nbytes = (2 * pages * page_bytes + 2 * q.numel() * esize
-                  + 4 * tables.numel() + 4 * len(lengths) + rest[2].numel())
-        line = {
-            "phase": "kernels", "name": "paged_attention", "dtype": tname,
-            "batch": q.shape[0], "q_heads": q.shape[1], **kv,
-            "max_pages": tables.shape[1], "pages_read": pages,
-            "max_abs_err": err, "max_row_rel_err": rel,
-            **time_both(torch, "kernel_ms", lambda: paged_attention_cuda(
-                q, kp, vp, *rest), iters),
-            **time_both(torch, "kernel_ms_cold", cold_call, iters),
-            "cold_pool_gb": sum(t.numel() * t.element_size()
-                                for pair in cold for t in pair) / 1e9,
-            "plain_ms": time_ms(
-                torch, lambda: paged_attention_ref(q, kp, vp, *rest), iters),
-            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None, "card": card,
-        }
-        # the rates of the card's own time (queued)
-        line["gb_per_s"] = nbytes / line["kernel_ms_queued"] / 1e6
-        line["gb_per_s_cold"] = nbytes / line["kernel_ms_cold_queued"] / 1e6
-        emit(line)
-        results[("paged_attention", tname)] = line
-        del q, kp, vp, rest, got, want, cold
-
-        q, k, v = flash_inputs(torch, dtype, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.d_head)
-        got = flash_attention_cuda(q, k, v, causal=True)
-        want = flash_attention_ref(q, k, v, causal=True)
-        err = (got.float() - want.float()).abs().max().item()
-        rel = row_rel_err(got, want)
-        check(err <= tol[dtype] and (dtype == torch.float32 or rel <= row_tol),
-              f"flash_attention {tname}: kernel vs plain {err} (abs), "
-              f"{rel} (row-relative)")
-        b, s, hq, d = q.shape
-        # the causal pairs' two products (Q.K and P.V), 2 flops per MAC
-        flops = 4 * b * hq * d * s * (s + 1) // 2
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
-        bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                  "operations": flops / PEAK_FLOPS[tname] * 1e3}
-        bound_by = max(bounds, key=bounds.get)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        line = {
-            "phase": "kernels", "name": "flash_attention", "dtype": tname,
-            "batch": b, "seq": s, "q_heads": hq, "kv_heads": k.shape[2],
-            "d_head": d, "causal": True, "max_abs_err": err,
-            "max_row_rel_err": rel,
-            **time_both(torch, "kernel_ms", lambda: flash_attention_cuda(
-                q, k, v, causal=True), iters),
-            "plain_ms": time_ms(
-                torch, lambda: flash_attention_ref(q, k, v, causal=True),
-                iters),
-            "bytes": nbytes, "flops": flops, "bound_ms": bounds[bound_by],
-            "bound_by": bound_by,
-            **time_both(torch, "library_ms", lambda: (
-                F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)), iters),
-            "card": card,
-        }
-        # the rate of the card's own time (queued)
-        line["tflops"] = flops / line["kernel_ms_queued"] / 1e9
-        emit(line)
-        results[("flash_attention", tname)] = line
-        del q, k, v, got, want
+            results[("gc_compact", tname, case)] = gc_case(
+                torch, rng, dtype, kv, case, iters, card)
+        results[("gc_compact", tname, MOE_ARCH)] = gc_case(
+            torch, rng, dtype, moe_kv, "overlapping", iters, card)
+        results[("paged_attention", tname)] = paged_case(
+            torch, rng, dtype, kv, cfg.n_heads, iters, card, cold=True)
+        results[("paged_attention", tname, MOE_ARCH)] = paged_case(
+            torch, rng, dtype, moe_kv, moe_cfg.n_heads, iters, card,
+            cold=False)
+        results[("flash_attention", tname)] = flash_case(
+            torch, dtype, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 2048, 0,
+            iters, card, SERVE_ARCH)
+        for arch, s in (("mixtral-8x22b", 4608), (VLM_ARCH, 2048)):
+            c = get_config(arch)
+            results[("flash_attention", tname, arch)] = flash_case(
+                torch, dtype, c.n_heads, c.n_kv_heads, c.d_head, s,
+                c.sliding_window, max(5, iters // 5), card, arch)
         torch.cuda.empty_cache()
     return results
 
@@ -2303,11 +2397,40 @@ def serve_engine(torch, args, cfg, device, n_requests, max_new):
     return eng
 
 
-def phase_serve_full_width(torch, args, card):
-    """internlm2-1.8b at full width in bf16 through the serving engine."""
+_CPU_CONTROL = {}  # (seed, requests, max_new) -> the CPU smoke run's plane
+
+
+def cpu_control_plane(torch, args, n_req, max_new):
+    """The request set's control plane (steps, appended, copied, every
+    move list) from a run at smoke width on the CPU, made once a call: the
+    manager never sees the model, so the plane does not depend on the arch
+    (tests/test_torch_moe.py::test_engine_control_plane_does_not_depend_on_the_model)
+    and every serving path is held to the same run. Returns (plane, the
+    seconds it took here, 0 where an earlier phase made it)."""
     from repro_torch.models.registry import get_config, smoke_config
 
-    cfg = get_config(SERVE_ARCH)
+    key = (args.seed, n_req, max_new)
+    if key in _CPU_CONTROL:
+        return _CPU_CONTROL[key], 0.0
+    t0 = time.perf_counter()
+    ref = serve_engine(torch, args, smoke_config(get_config(SERVE_ARCH)),
+                       "cpu", n_req, max_new)
+    lists = []
+    while ref.running or ref.queue:
+        lists.extend(ref.step()["move_lists"])
+    _CPU_CONTROL[key] = ({"steps": ref.steps,
+                          "appended": ref.manager.appended,
+                          "copied": ref.manager.copied}, lists)
+    return _CPU_CONTROL[key], time.perf_counter() - t0
+
+
+def serve_path(torch, args, card, phase, arch):
+    """``arch`` at full width in bf16 through the serving engine, counts
+    set to 0 just before: tokens/s, step and prefill times, launches and
+    memory; its control plane held to the CPU smoke run's."""
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(arch)
     n_req, max_new = SERVE_REQUESTS, SERVE_NEW
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2343,41 +2466,35 @@ def phase_serve_full_width(torch, args, card):
     launches = read_launches()
     mgr = eng.manager
     mgr.check_invariants()
-    check(bool(finite), "serve_full_width: non-finite logits")
+    check(bool(finite), f"{phase}: non-finite logits")
     check(len(mgr.free) == mgr.n_blocks,
-          f"serve_full_width: {len(mgr.free)} of {mgr.n_blocks} blocks free")
+          f"{phase}: {len(mgr.free)} of {mgr.n_blocks} blocks free")
     decode_tokens = mgr.appended - n_req * SERVE_PROMPT
     check(launches["paged_attention"] == cfg.n_layers * eng.steps,
-          f"serve_full_width: paged_attention launched "
+          f"{phase}: paged_attention launched "
           f"{launches['paged_attention']} times in {eng.steps} steps")
     check(launches["gc_compact"] == len(lists),
-          f"serve_full_width: gc_compact launched {launches['gc_compact']} "
+          f"{phase}: gc_compact launched {launches['gc_compact']} "
           f"times for {len(lists)} move lists")
     for name in ("paged_attention", "gc_compact"):
-        check(launches[name] > 0, f"serve_full_width: never launched {name}")
+        check(launches[name] > 0, f"{phase}: never launched {name}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     summary = {"steps": eng.steps, "appended": mgr.appended,
                "copied": mgr.copied}
     del eng
     torch.cuda.empty_cache()
 
-    # the same request set at smoke width on the CPU: the manager's
-    # decisions do not depend on the model, so they must be identical
-    t1 = time.perf_counter()
-    ref = serve_engine(torch, args, smoke_config(cfg), "cpu", n_req, max_new)
-    ref_lists = []
-    while ref.running or ref.queue:
-        ref_lists.extend(ref.step()["move_lists"])
-    cpu_s = time.perf_counter() - t1
-    ref_summary = {"steps": ref.steps, "appended": ref.manager.appended,
-                   "copied": ref.manager.copied}
+    (ref_summary, ref_lists), cpu_s = cpu_control_plane(torch, args, n_req,
+                                                        max_new)
     check(summary == ref_summary and lists == ref_lists,
-          f"serve_full_width: control plane {summary} differs from the "
-          f"CPU smoke run's {ref_summary}")
+          f"{phase}: control plane {summary} differs from the CPU smoke "
+          f"run's {ref_summary}")
     decode_s = sum(step_ms) / 1e3
     line = {
-        "phase": "serve_full_width", "arch": cfg.arch_id, "dtype": cfg.dtype,
-        "layers": cfg.n_layers, "d_model": cfg.d_model, **SERVE,
+        "phase": phase, "arch": cfg.arch_id, "dtype": cfg.dtype,
+        "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "q_heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "experts": cfg.n_experts, "top_k": cfg.top_k, **SERVE,
         "requests": n_req, "prompt": SERVE_PROMPT, "max_new": max_new,
         **summary, "move_lists": len(lists),
         "wa": mgr.write_amplification,
@@ -2393,6 +2510,198 @@ def phase_serve_full_width(torch, args, card):
         "peak_memory_gb": peak_gb, "cpu_smoke_seconds": cpu_s, "card": card,
     }
     emit(line)
+    return line
+
+
+def phase_serve_full_width(torch, args, card):
+    """internlm2-1.8b at full width in bf16 through the serving engine."""
+    return serve_path(torch, args, card, "serve_full_width", SERVE_ARCH)
+
+
+def phase_serve_moe(torch, args, card):
+    """olmoe-1b-7b at full width and depth in bf16 through the serving
+    engine: each prefill (one request, 256 tokens: one group, capacity 40)
+    takes the MoE capacity path, each decode step the dense path."""
+    return serve_path(torch, args, card, "serve_moe", MOE_ARCH)
+
+
+MOE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # atol = rtol, elementwise
+
+
+def moe_case(torch, args, cfg, path, tokens, card):
+    """One MoE layer of ``cfg`` on the card and on the CPU, the same
+    weights (made on the card from --seed) and inputs: routed once on the
+    CPU, that routing fed to ``path``'s dispatch, experts and combine on
+    both; the card must agree within 1e-5 (fp32) or 2e-2 (bf16) and drop
+    the same (token, choice) pairs. The card's own routing is reported:
+    how many tokens' top-k sets differ from the CPU's (top-k is
+    discontinuous, so a count, not a check)."""
+    from repro_torch.models import moe
+
+    tol = MOE_TOL[cfg.dtype]
+    layer = moe.MoE(cfg, "cuda")
+    layer.init_(torch.Generator(device="cuda").manual_seed(args.seed))
+    layer_cpu = moe.MoE(cfg, "cpu")
+    layer_cpu.load_state_dict({k: v.cpu()
+                               for k, v in layer.state_dict().items()})
+    rng = np.random.default_rng(args.seed + tokens)
+    x_cpu = torch.from_numpy(rng.normal(size=(1, tokens, cfg.d_model)).astype(
+        np.float32)).to(getattr(torch, cfg.dtype))
+    x = x_cpu.cuda()
+    gates, idx = moe._router(layer_cpu, x_cpu.reshape(tokens, -1), cfg)
+    ggates, gidx = gates.cuda(), idx.cuda()
+    if path == "capacity":
+        def card_fn():
+            return moe.capacity_from_routing(layer, x, ggates, gidx, cfg)
+        want, keep_cpu = moe.capacity_from_routing(layer_cpu, x_cpu, gates,
+                                                   idx, cfg)
+        got, keep = card_fn()
+        keep = keep.cpu()
+        check(torch.equal(keep, keep_cpu),
+              f"moe_layer {cfg.arch_id} {cfg.dtype} T {tokens}: the card "
+              f"kept other (token, choice) pairs than the CPU")
+        dropped = int((~keep).sum())
+    else:
+        def card_fn():
+            return moe.dense_from_routing(layer, x, ggates, gidx, cfg)
+        want = moe.dense_from_routing(layer_cpu, x_cpu, gates, idx, cfg)
+        got, dropped = card_fn(), 0
+    got, want = got.cpu().float(), want.float()
+    err = (got - want).abs().max().item()
+    check(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
+          f"moe_layer {cfg.arch_id} {cfg.dtype} {path} T {tokens}: card vs "
+          f"CPU max abs err {err} (atol = rtol = {tol})")
+    _, card_idx = moe._router(layer, x.reshape(tokens, -1), cfg)
+    differ = int((card_idx.sort(-1)[0].cpu() != idx.sort(-1)[0]).any(
+        -1).sum())
+    apply = (moe.moe_apply_dense if path == "dense"
+             else moe.moe_apply_capacity)
+    line = {
+        "phase": "moe_layer", "arch": cfg.arch_id, "dtype": cfg.dtype,
+        "path": path, "tokens": tokens, "d_model": cfg.d_model,
+        "d_ff": cfg.d_ff, "experts": cfg.n_experts, "top_k": cfg.top_k,
+        "tokens_per_group": moe.tokens_per_group(cfg, tokens),
+        "capacity": (moe.capacity(cfg, moe.tokens_per_group(cfg, tokens))
+                     if path == "capacity" else None),
+        "dropped": dropped, "max_abs_err": err,
+        "bound": f"atol = rtol = {tol}",
+        "card_routing_sets_differ": differ,
+        "routed_ms": time_ms(torch, card_fn, 20),
+        "layer_ms": time_ms(torch, lambda: apply(layer, x, cfg), 20),
+        "card": card,
+    }
+    emit(line)
+    del layer, layer_cpu
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_moe_layer(torch, args, card):
+    """One MoE layer at olmoe-1b-7b's full width (d 2048, f 1024, 64
+    experts, top-8) in fp32 and bf16: the capacity path at T = 256 (one
+    group) and 600 (three, 168 pad rows), the dense path at T = 32 (a
+    decode batch); then mixtral-8x22b's width (d 6144, f 16384, 8 experts,
+    top-2) in fp32 at T = 256."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_config
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "moe_layer: fp32 matmuls must not run in TF32")
+    lines = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(MOE_ARCH), dtype=dtype)
+        for path, tokens in (("capacity", 256), ("capacity", 600),
+                             ("dense", 32)):
+            lines.append(moe_case(torch, args, cfg, path, tokens, card))
+    # olmoe's capacity of 40 against a mean load of 32 drops tokens;
+    # mixtral's 80 against 64 may not, at its published capacity factor
+    check(all(ln["dropped"] > 0 for ln in lines if ln["path"] == "capacity"),
+          "moe_layer: an olmoe capacity case dropped nothing")
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), dtype="float32")
+    lines.append(moe_case(torch, args, cfg, "capacity", 256, card))
+    return lines
+
+
+def phase_vlm_prefill(torch, args, card):
+    """llava-next-34b at full width in fp32, 8 of its 60 layers: two
+    sequences of 512 stub patch embeddings and 1,536 text tokens
+    (``_seq_split(cfg, 2048)``), prefilled with decode headroom (the flash
+    kernel at G = 7), then four decode steps; each step's logits must
+    equal the last-token logits of a prefill over the sequence extended to
+    that token, within 2e-3 (a dense stack: no capacity drops)."""
+    import dataclasses
+
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import _seq_split, get_config
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS,
+                              dtype="float32")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "vlm_prefill: fp32 matmuls must not run in TF32")
+    b, n_steps = 2, 4
+    s_img, s_text = _seq_split(cfg, VLM_SEQ)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(args.seed), cfg)
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in params.parameters()) / 1e9
+    rng = np.random.default_rng(args.seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s_text + n_steps)).astype(np.int32)).cuda()
+    # stub patch embeddings at the JAX package's test scale (normal x 0.02)
+    extra = torch.from_numpy((rng.normal(size=(b, s_img, cfg.d_model))
+                              * 0.02).astype(np.float32)).cuda()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(params, tokens[:, :s_text], cfg,
+                                        extra_embeds=extra,
+                                        max_len=VLM_SEQ + n_steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), "vlm_prefill: non-finite logits")
+    launches = read_launches()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"vlm_prefill: the prefill launched flash_attention "
+          f"{launches['flash_attention']} times, not {cfg.n_layers}")
+    decode_ms, steps = [], []
+    for i in range(n_steps):
+        pos = torch.full((b,), VLM_SEQ + i, dtype=torch.int32, device="cuda")
+        t1 = time.perf_counter()
+        got, cache = transformer.decode_step(params, cache,
+                                             tokens[:, s_text + i], pos, cfg)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+        steps.append(got)
+    launches = read_launches()  # the path's: one prefill, n_steps decodes
+    errs = []
+    for i, got in enumerate(steps):
+        want, _ = transformer.prefill(params, tokens[:, :s_text + i + 1], cfg,
+                                      extra_embeds=extra)
+        err = (got - want).abs().max().item()
+        check(bool(((got - want).abs() <= 2e-3 + 2e-3 * want.abs()).all()),
+              f"vlm_prefill: decode step {i} vs extended prefill max abs "
+              f"err {err}")
+        errs.append(err)
+    line = {
+        "phase": "vlm_prefill", "arch": cfg.arch_id, "dtype": cfg.dtype,
+        "layers": cfg.n_layers, "reduced": {"n_layers": [60, cfg.n_layers]},
+        "d_model": cfg.d_model, "q_heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "group": cfg.n_heads // cfg.n_kv_heads,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "batch": b,
+        "image_tokens": s_img, "text_tokens": s_text,
+        "decode_steps": n_steps, "prefill_s": prefill_s,
+        "decode_ms": decode_ms, "max_abs_err_by_step": errs,
+        "max_abs_err": max(errs), "bound": "atol = rtol = 2e-3",
+        "launches": launches, "weights_gb": weights_gb,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card,
+    }
+    emit(line)
+    del params, cache
+    torch.cuda.empty_cache()
     return line
 
 
@@ -2580,37 +2889,39 @@ def phase_profile(torch, args, card):
                    device="cuda", **run_kw)[1]["host_syncs"])
         del st
 
-    # decode steps of the serving engine at batch 32, after the prefills
-    steps = 8
-    eng = serve_engine(torch, args, get_config(SERVE_ARCH), "cuda",
-                       SERVE["max_batch"], steps + 2)
-    eng.step()  # admits (prefills) every request and decodes once
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
+    # decode steps of the serving engines at batch 32, after the prefills
+    for path, arch in (("serve_full_width", SERVE_ARCH),
+                       ("serve_moe", MOE_ARCH)):
+        steps = 8
+        eng = serve_engine(torch, args, get_config(arch), "cuda",
+                           SERVE["max_batch"], steps + 2)
+        eng.step()  # admits (prefills) every request and decodes once
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    stats = kernel_stats(torch, prof, wall)
-    paged = [e for e in prof.key_averages()
-             if "paged_attention_kernel" in e.key]
-    check(paged, "profile: no paged_attention kernel in the decode window")
-    paged_s = sum(_device_us(e) for e in paged) / 1e6
-    busy = stats["device_busy_s"]
-    emit({
-        "phase": "profile", "path": "serve_full_width",
-        "arch": eng.cfg.arch_id, "batch": SERVE["max_batch"],
-        "decode_steps": steps, **stats,
-        "kernels_per_step": stats["launches"] / steps,
-        "paged_attention_device_s": paged_s,
-        "paged_attention_launches": sum(e.count for e in paged),
-        "paged_attention_busy_share": paged_s / busy
-        if isinstance(busy, float) and busy > 0 else "not measured",
-        "card": card,
-    })
-    del eng
-    torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        stats = kernel_stats(torch, prof, wall)
+        paged = [e for e in prof.key_averages()
+                 if "paged_attention_kernel" in e.key]
+        check(paged, f"profile {path}: no paged_attention kernel in the "
+              "decode window")
+        paged_s = sum(_device_us(e) for e in paged) / 1e6
+        busy = stats["device_busy_s"]
+        emit({
+            "phase": "profile", "path": path, "arch": eng.cfg.arch_id,
+            "batch": SERVE["max_batch"], "decode_steps": steps, **stats,
+            "kernels_per_step": stats["launches"] / steps,
+            "paged_attention_device_s": paged_s,
+            "paged_attention_launches": sum(e.count for e in paged),
+            "paged_attention_busy_share": paged_s / busy
+            if isinstance(busy, float) and busy > 0 else "not measured",
+            "card": card,
+        })
+        del eng
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -2677,8 +2988,11 @@ def main() -> None:
                                       phase_full_width_reference, card),
         "serve_full_width": timed("serve_full_width", phase_serve_full_width,
                                   card),
+        "serve_moe": timed("serve_moe", phase_serve_moe, card),
         "dense_vs_paged": timed("dense_vs_paged", phase_dense_vs_paged, card),
+        "vlm_prefill": timed("vlm_prefill", phase_vlm_prefill, card),
     }
+    timed("moe_layer", phase_moe_layer, card)
     timed("allocation", phase_allocation, card)
     timed("profile", phase_profile, card)
     if args.phases is not None:  # a partial run: no summary, no ok line
@@ -2714,9 +3028,11 @@ def main() -> None:
         **{n: [(d,) for d in (1, 64)]
            for n in ("apply_write", "apply_trim", "compact_slots")},
         "gc_compact": [(t, c) for t in ("bfloat16", "float32")
-                       for c in ("overlapping", "disjoint")],
-        "paged_attention": [("bfloat16",), ("float32",)],
-        "flash_attention": [("float32",), ("bfloat16",)],
+                       for c in ("overlapping", "disjoint", MOE_ARCH)],
+        "paged_attention": [(t, *a) for t in ("bfloat16", "float32")
+                            for a in ((), (MOE_ARCH,))],
+        "flash_attention": [(t, *a) for t in ("float32", "bfloat16")
+                            for a in ((), ("mixtral-8x22b",), (VLM_ARCH,))],
     }
     summary = []
     for name in replaces:
@@ -2762,6 +3078,14 @@ def main() -> None:
                 "kernel_ms", "kernel_ms_queued", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_ms_queued", "tflops",
                 "max_abs_err", "max_row_rel_err")}
+        # the MoE and VLM archs' shapes, each held and timed as the first
+        shapes = {", ".join(c): {k: kernels[(name, *c)][k] for k in (
+            "kernel_ms", "kernel_ms_queued", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err")}
+            for c in cases[name] if c[-1] in (MOE_ARCH, "mixtral-8x22b",
+                                              VLM_ARCH)}
+        if shapes:
+            row["shapes"] = shapes
         summary.append(row)
     emit({"kernels": summary, "phase_s": seconds,
           "script_s": time.perf_counter() - t_start})

@@ -1,0 +1,18 @@
+"""mixtral-8x22b [moe]: 56L d_model=6144 48H (GQA kv=8) d_ff=16384 vocab=32768,
+MoE 8 experts top-2, sliding-window attention [arXiv:2401.04088; hf]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="mixtral-8x22b",
+    family="moe",
+    n_layers=56,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=16384,
+    vocab=32768,
+    mlp_type="swiglu",
+    n_experts=8,
+    top_k=2,
+    sliding_window=4096,
+)

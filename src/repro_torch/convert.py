@@ -40,9 +40,11 @@ def state_to_numpy(st: SimState) -> dict:
 #
 # The JAX package's ``init_params`` tree, as numpy: {"embedding": {"embed",
 # "unembed"}, "layers": {...} with every leaf stacked on a leading L axis,
-# "final_norm": {"scale"}}. The port's modules keep its leaf names and
-# layouts. numpy has no bfloat16 of its own: a bfloat16 leaf is the JAX
-# package's (ml_dtypes) and crosses as its 16 bits.
+# "final_norm": {"scale"}}. A layer holds "mlp" or, in an MoE model, "moe"
+# ({"router" [d, E] fp32 in any model, "wi_gate", "wi_up" [E, d, f], "wo"
+# [E, f, d]}). The port's modules keep its leaf names, layouts and dtypes.
+# numpy has no bfloat16 of its own: a bfloat16 leaf is the JAX package's
+# (ml_dtypes) and crosses as its 16 bits.
 
 
 def params_from_numpy(tree: dict, cfg, device="cuda"):

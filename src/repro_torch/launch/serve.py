@@ -3,9 +3,11 @@ counterpart of ``repro.launch.serve``, plus ``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 12 --max-new 24
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
 
 The model is the arch's smoke config (random weights), as in the JAX
-package's launcher.
+package's launcher; ``--arch`` takes every ported arch (the dense family,
+olmoe-1b-7b, mixtral-8x22b and llava-next-34b's text backbone).
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Arch registry: ``--arch <id>`` → config + a uniform model API (the
-counterpart of ``repro.models.registry`` for the dense family).
+counterpart of ``repro.models.registry`` for the dense, MoE and VLM
+families).
 
     api = get_model(cfg)
     params = api.init_params(generator)           # on the generator's device
-    logits, cache = api.prefill(params, tokens, max_len=...)
+    logits, cache = api.prefill(params, tokens, extra_embeds=None,
+                                max_len=...)
     logits, cache = api.decode_step(params, cache, tokens, pos)
     cache = api.init_cache(batch, seq_len, device)
 """
@@ -21,16 +23,24 @@ ARCH_MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "deepseek-7b": "deepseek_7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "llava-next-34b": "llava_next_34b",
 }
 
 ALL_ARCHS = tuple(ARCH_MODULES)
 
+# the JAX package's other archs and their families, still to port
+_WAITING = {"xlstm-125m": "ssm", "hymba-1.5b": "hybrid",
+            "whisper-large-v3": "audio"}
+_WAITS = "waits for a later slice of the port (ROADMAP.md §A.6)"
+
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in ARCH_MODULES:
+    if arch_id in _WAITING:
         raise NotImplementedError(
-            f"{arch_id}: only the dense archs {ALL_ARCHS} are ported; the "
-            "other families wait for a later slice (ROADMAP.md §A)")
+            f"{arch_id}: the {_WAITING[arch_id]} family {_WAITS}; "
+            f"ported: {ALL_ARCHS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{ARCH_MODULES[arch_id]}")
     return mod.CONFIG
@@ -62,20 +72,33 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **reductions)
 
 
+def _seq_split(cfg: ModelConfig, seq_len: int) -> tuple[int, int]:
+    """(frontend_tokens, text_tokens) for stub-frontend archs."""
+    if cfg.frontend == "vision_patches":
+        s_img = int(seq_len * cfg.frontend_tokens_ratio)
+        return s_img, seq_len - s_img
+    if cfg.frontend == "audio_frames":
+        return max(1, seq_len // cfg.encoder_seq_ratio), seq_len
+    return 0, seq_len
+
+
 @dataclasses.dataclass
 class ModelApi:
     cfg: ModelConfig
     init_params: Callable   # (generator) -> params
-    prefill: Callable       # (params, tokens, max_len=None) -> (logits, cache)
+    prefill: Callable       # (params, tokens, extra_embeds=None, max_len=None)
+    #                         -> (logits, cache)
     decode_step: Callable   # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Callable    # (batch, seq_len, device) -> cache
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} waits for a later slice (ROADMAP.md §A)")
+    if cfg.family in _WAITING.values():
+        raise NotImplementedError(f"family {cfg.family!r} {_WAITS}")
     from repro_torch.models import transformer as M
+
+    if cfg.family not in M.PORTED_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
     def prefill(params, tokens, extra_embeds=None, max_len=None):
         return M.prefill(params, tokens, cfg, extra_embeds=extra_embeds,

@@ -1,12 +1,14 @@
-"""Decoder-only transformer LM, dense family (the counterpart of
-``repro.models.transformer`` for internlm2-1.8b, deepseek-7b, granite-20b
-and deepseek-coder-33b).
+"""Decoder-only transformer LM (the counterpart of
+``repro.models.transformer``): the dense family (internlm2-1.8b,
+deepseek-7b, granite-20b, deepseek-coder-33b), the mixture-of-experts
+family (olmoe-1b-7b, mixtral-8x22b: ``models/moe.py`` in place of the MLP)
+and the VLM backbone (llava-next-34b: precomputed patch embeddings,
+``extra_embeds``, go before the text).
 
 The JAX package stacks the layers and drives them with ``lax.scan``; here
 they are an ``nn.ModuleList`` and a Python loop. Per-layer windows stay
-data (``window_schedule``). What the dense serving path does not need
-waits for the model and training slices (ROADMAP.md): mixture-of-experts
-FFNs, stub-frontend ``extra_embeds``, learned absolute positions and
+data (``window_schedule``). What serving does not need waits for later
+slices (ROADMAP.md §A): the other families, learned absolute positions and
 ``loss_fn`` raise ``NotImplementedError``.
 """
 
@@ -24,16 +26,19 @@ from repro_torch.models.attention import (
     out_project,
     qkv_project,
 )
+from repro_torch.models.moe import MoE, moe_apply
 
 _WAITS = "waits for a later slice of the port (ROADMAP.md §A)"
 
+PORTED_FAMILIES = ("dense", "moe", "vlm")
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is what this module ports: the dense family
-    with RoPE."""
-    if cfg.n_experts or cfg.family != "dense":
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is what this module ports: the dense, MoE and
+    VLM families with RoPE."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} / MoE {_WAITS}")
+            f"{cfg.arch_id}: family {cfg.family!r} {_WAITS}")
     if not cfg.use_rope:
         raise NotImplementedError(
             f"{cfg.arch_id}: learned absolute positions {_WAITS}")
@@ -61,21 +66,24 @@ def _norm(norm: C.RMSNorm, x, cfg: ModelConfig):
 
 def _ffn(block: "Block", x, cfg: ModelConfig):
     if cfg.n_experts:
-        raise NotImplementedError(f"mixture-of-experts FFN {_WAITS}")
+        return moe_apply(block.moe, x, cfg)
     return C.mlp_apply(block.mlp, x)
 
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        check_dense(cfg)
+        check_ported(cfg)
         self.ln1 = C.RMSNorm(cfg.d_model, device)
         self.attn = Attention(cfg, device)
         self.ln2 = C.RMSNorm(cfg.d_model, device)
-        self.mlp = C.MLP(cfg, device)
+        if cfg.n_experts:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = C.MLP(cfg, device)
 
     def init_(self, generator) -> None:
-        for part in (self.ln1, self.attn, self.ln2, self.mlp):
+        for part in self.children():  # ln1, attn, ln2, then moe or mlp
             part.init_(generator)
 
 
@@ -121,7 +129,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        check_dense(cfg)
+        check_ported(cfg)
         self.cfg = cfg
         self.embedding = C.Embedding(cfg, device)
         self.layers = nn.ModuleList(
@@ -143,16 +151,20 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
 
 
 def _input_embeds(params: Transformer, tokens, extra_embeds=None):
-    if extra_embeds is not None:
-        raise NotImplementedError(f"stub-frontend embeddings {_WAITS}")
+    """Token embeddings [B, S, d], after the stub frontend's precomputed
+    ``extra_embeds`` [B, S', d] where given (cast to the model's dtype),
+    and positions [S] over the whole sequence."""
     x = C.embed_tokens(params.embedding, tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x, torch.arange(x.shape[1], device=x.device)
 
 
 def forward_hidden(params: Transformer, tokens, cfg: ModelConfig, *,
                    extra_embeds=None, collect_kv: bool = False):
     """Final hidden states [B, S, d] (and, with ``collect_kv``, the
-    per-layer K and V stacked to [L, B, S, Hkv, D])."""
+    per-layer K and V stacked to [L, B, S, Hkv, D]); S counts the
+    ``extra_embeds`` rows before the text."""
     x, positions = _input_embeds(params, tokens, extra_embeds)
     ks, vs = [], []
     for block, win in zip(params.layers, window_schedule(cfg).tolist()):
@@ -188,7 +200,7 @@ def prefill(params: Transformer, tokens, cfg: ModelConfig, *,
     """Full prompt pass. Returns (last-token logits [B, V] fp32, cache).
 
     ``max_len`` reserves decode headroom in the cache (default: the prompt
-    length)."""
+    length, ``extra_embeds`` rows included)."""
     x, (ks, vs) = forward_hidden(params, tokens, cfg,
                                  extra_embeds=extra_embeds, collect_kv=True)
     b, s = x.shape[0], x.shape[1]

@@ -38,6 +38,7 @@ from repro_torch.kernels.write_path import kernel as wp_kernel
 from repro_torch.kernels.write_path import ops as wp_ops
 from repro_torch.kernels.write_run import kernel as wr_kernel
 from repro_torch.kernels.write_run import ref as wr_ref
+from repro_torch.models import moe
 from repro_torch.models.registry import get_config, smoke_config
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -693,6 +694,27 @@ def test_gc_compact_kernel_matches_plain_version(cuda, dtype, overlap):
         assert torch.equal(g, w)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gc_compact_kernel_at_16_kv_heads(cuda, dtype):
+    """olmoe-1b-7b's pool rows (16 KV heads of 128) over two layers, the
+    sources overlapping the destinations."""
+    rng = np.random.default_rng(6)
+    n, p, h, d, m = 24, 16, 16, 128, 120
+    pools = [torch.from_numpy(rng.normal(size=(2, n, p, h, d)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(2)]
+    slots = rng.permutation(n * p)
+    src = rng.choice(slots, m, replace=False)
+    moves = np.stack([src // p, src % p, slots[:m] // p, slots[:m] % p], 1)
+    moves = torch.from_numpy(moves.astype(np.int32))
+    assert gc_kernel.plan_moves(moves, n, p)[1] > 0
+    got, want = [t.clone() for t in pools], [t.clone() for t in pools]
+    gc_kernel.gc_compact_cuda(*got, moves)
+    gc_ops.gc_compact_ref(*want, moves)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def _assert_close(got, want, dtype):
     """Within the absolute bound, and in bf16 each row of the head
     dimension within 2e-2 of that row's largest |plain| value."""
@@ -720,6 +742,8 @@ def _assert_close(got, want, dtype):
     (4, 16, 2, 128, 64, 16, 8, None, 1.0),
     # G = 8 at D = 32
     (2, 8, 1, 32, 24, 8, 8, (64, 33), 0.3),
+    # olmoe-1b-7b's heads: G = 1 over 16 KV heads on a 64-page table
+    (4, 16, 16, 128, 200, 16, 64, (1024, 700, 17, 256), 0.2),
 ])
 def test_paged_attention_kernel_matches_plain_version(
         cuda, dtype, b, hq, hkv, d, n, p, m, lengths, holes):
@@ -787,6 +811,10 @@ def test_paged_attention_kernel_head_sizes(cuda, dtype, d, ok):
     # a narrow window at G = 8, B > 1; a window across tiles at D = 32
     (2, 333, 333, 16, 2, 128, True, 16),
     (1, 257, 257, 8, 2, 32, True, 70),
+    # mixtral-8x22b's heads (G = 6) with a window shorter than the
+    # sequence; llava-next-34b's (G = 7): odd groups, one head a block
+    (1, 700, 700, 48, 8, 128, True, 512),
+    (2, 300, 300, 56, 8, 128, True, 0),
 ])
 def test_flash_attention_kernel_matches_plain_version(
         cuda, dtype, b, sq, skv, hq, hkv, d, causal, window):
@@ -858,3 +886,79 @@ def test_card_engine_matches_cpu_engine(cuda):
     assert runs[0][1] == runs[1][1]
     assert runs[0][3][0] == cfg.n_layers * runs[0][0]["steps"]
     assert runs[0][3][1] > 0 and runs[1][3] == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,tokens", [("capacity", 600), ("dense", 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_card_matches_cpu(cuda, dtype, path, tokens):
+    """olmoe's routing (64 experts, top-8, tpg 256) at d 256: routed once
+    on the CPU, that routing through the capacity path (three groups, 168
+    pad rows, capacity factor 1.0 so tokens drop) or the dense path on
+    the card and the CPU: the same pairs kept, outputs within 1e-5 (fp32)
+    or 2e-2 (bf16), absolute and relative."""
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), d_model=256,
+                              d_ff=128, capacity_factor=1.0, dtype=dtype)
+    layer = moe.MoE(cfg, cuda)
+    layer.init_(torch.Generator(device=cuda).manual_seed(0))
+    layer_cpu = moe.MoE(cfg, "cpu")
+    layer_cpu.load_state_dict({k: v.cpu()
+                               for k, v in layer.state_dict().items()})
+    x_cpu = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, tokens // 2, cfg.d_model)).astype(np.float32)).to(
+            getattr(torch, dtype))
+    gates, idx = moe._router(layer_cpu, x_cpu.reshape(tokens, -1), cfg)
+    args = (x_cpu.to(cuda), gates.to(cuda), idx.to(cuda), cfg)
+    if path == "capacity":
+        got, keep = moe.capacity_from_routing(layer, *args)
+        want, keep_cpu = moe.capacity_from_routing(layer_cpu, x_cpu, gates,
+                                                   idx, cfg)
+        assert torch.equal(keep.cpu(), keep_cpu) and not keep_cpu.all()
+    else:
+        got = moe.dense_from_routing(layer, *args)
+        want = moe.dense_from_routing(layer_cpu, x_cpu, gates, idx, cfg)
+    tol = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+def test_card_moe_engine_control_plane_matches_cpu(cuda):
+    """olmoe at smoke width in fp32 through the serving engine on the card
+    and on the CPU, the same weights, a pool tight enough to compact: the
+    same control plane (steps, counters, every move list) through both
+    serving kernels. Tokens are not compared: a routing choice may flip
+    between the two devices' fp32 sums."""
+    cfg = smoke_config(get_config("olmoe-1b-7b"))
+    runs = []
+    for device in (cuda, "cpu"):
+        eng = ServingEngine(cfg, n_blocks=24, page=8, max_pages_per_seq=16,
+                            max_batch=4, device=device)
+        if device == "cpu":  # the card engine's weights
+            eng.params.load_state_dict(runs[0][2])
+        lists, drain = [], eng.manager.drain_moves
+
+        def recorded():
+            moves = drain()
+            if moves:
+                lists.append(list(moves))
+            return moves
+
+        eng.manager.drain_moves = recorded
+        rng = np.random.default_rng(0)
+        for rid in range(8):
+            eng.submit(Request(rid=rid, prompt=rng.integers(
+                0, cfg.vocab, 12).astype(np.int32), max_new=48,
+                policy=["append", "h2o:50", "window:16"][rid % 3]))
+        n_launch = (paged_kernel.launches, gc_kernel.kv_launches)
+        summary = eng.run_until_drained(max_steps=400)
+        eng.manager.check_invariants()
+        assert len(eng.manager.free) == 24
+        launched = (paged_kernel.launches - n_launch[0],
+                    gc_kernel.kv_launches - n_launch[1])
+        runs.append(((summary, lists), launched, {
+            k: v.cpu() for k, v in eng.params.state_dict().items()}))
+    assert runs[0][0] == runs[1][0] and runs[0][0][0]["copied"] > 0
+    assert runs[0][1] == (cfg.n_layers * runs[0][0][0]["steps"],
+                          len(runs[0][0][1]))
+    assert runs[1][1] == (0, 0)

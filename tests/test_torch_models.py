@@ -54,23 +54,36 @@ def test_configs_equal_field_by_field(arch):
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "xlstm-125m", "whisper-large-v3"])
 def test_other_families_raise(arch):
+    """The MoE family is ported (olmoe-1b-7b resolves to the JAX
+    package's config and builds); the SSM and audio families still raise,
+    naming ROADMAP.md, from the registry and from the transformer."""
+    ref_cfg = ref_registry.get_config(arch)
+    if arch == "olmoe-1b-7b":
+        cfg = registry.get_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+        params = registry.get_model(registry.smoke_config(cfg)).init_params(
+            torch.Generator().manual_seed(0))
+        assert params.layers[0].moe.router.dtype == torch.float32
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.get_config(arch)
-    cfg = dataclasses.replace(registry.smoke_config(
-        registry.get_config("internlm2-1.8b")), n_experts=8, top_k=2)
+    cfg = dataclasses.replace(
+        registry.smoke_config(registry.get_config("internlm2-1.8b")),
+        family=ref_cfg.family)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        registry.get_model(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init_params(torch.Generator().manual_seed(0), cfg)
 
 
 def test_unported_entry_points_raise():
+    """Training and learned absolute positions wait for later slices
+    (``extra_embeds`` is ported: tests/test_torch_vlm.py)."""
     cfg = registry.smoke_config(registry.get_config("internlm2-1.8b"))
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
     tokens = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.loss_fn(params, {"tokens": tokens}, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.prefill(params, tokens, cfg,
-                            extra_embeds=torch.zeros((1, 2, cfg.d_model)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init_params(torch.Generator().manual_seed(0),
                                 dataclasses.replace(cfg, use_rope=False))
