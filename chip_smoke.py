@@ -2705,6 +2705,247 @@ def phase_vlm_prefill(torch, args, card):
     return line
 
 
+# The last three model families, each at full width: (a) bf16 at full
+# depth, random weights from --seed, timed; (b) fp32 at full depth, each
+# decode step's logits against the last-token logits of a prefill over the
+# extended sequence; (c) fp32 at a depth cut, the card against the CPU on
+# the same weights. phase -> (arch, (a)'s batch, prompt tokens, decode
+# steps, (c)'s depth cut). Whisper's 1,500 stub frames are its 30 s audio
+# context after the conv frontend's stride 2, and 440 + 8 tokens its text
+# context of 448.
+FAMILY_PHASES = {
+    "xlstm_full_width": ("xlstm-125m", 8, 1000, 16, {"n_layers": 4}),
+    "hymba_full_width": ("hymba-1.5b", 4, 2048, 16, {"n_layers": 2}),
+    "whisper_full_width": ("whisper-large-v3", 4, 440, 8,
+                           {"n_layers": 2, "n_encoder_layers": 2}),
+}
+WHISPER_FRAMES = 1500
+FAMILY_CPU_PROMPT = 256  # (c)'s prompt, two decode steps
+
+
+def family_inputs(torch, rng, cfg, b, s, n_steps, s_enc, device):
+    """Prompt and decode tokens [b, s + n_steps] and, for the audio family,
+    ``s_enc`` stub frames [b, s_enc, d] (normal x 0.02, the JAX package's
+    test scale) in the model's dtype: prefill's extra positional inputs."""
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s + n_steps)).astype(np.int32)).to(device)
+    if cfg.frontend != "audio_frames":
+        return tokens, ()
+    frames = torch.from_numpy((rng.normal(size=(b, s_enc, cfg.d_model))
+                               * 0.02).astype(np.float32))
+    return tokens, (frames.to(device, getattr(torch, cfg.dtype)),)
+
+
+def cache_leaves(cache):
+    """The tensors of a cache (dicts, lists and tuples of them) in order."""
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in cache_leaves(cache[k])]
+    if isinstance(cache, (list, tuple)):
+        return [t for c in cache for t in cache_leaves(c)]
+    return [cache]
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want| (1 at least)."""
+    scale = max(want.abs().max().item(), 1.0)
+    return (got.float().cpu() - want.float().cpu()).abs().max().item() / scale
+
+
+def family_timed(torch, args, arch, b, s, n_steps, n_profiled=2):
+    """(a): bf16 at full width and depth, counts set to 0 just before the
+    prefill and read after the last timed decode step; then
+    ``n_profiled`` more decode steps under torch.profiler (kernels a
+    step, device busy time, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.registry import get_config, get_model
+
+    cfg = get_config(arch)
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(
+        torch.Generator(device="cuda").manual_seed(args.seed))
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in params.parameters()) / 1e9
+    tokens, extra = family_inputs(torch, np.random.default_rng(args.seed),
+                                  cfg, b, s, n_steps + n_profiled,
+                                  WHISPER_FRAMES, "cuda")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(params, tokens[:, :s], *extra,
+                                max_len=s + n_steps + n_profiled)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(logits).all())
+    decode_ms = []
+    for i in range(n_steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        t1 = time.perf_counter()
+        logits, cache = api.decode_step(params, cache, tokens[:, s + i], pos)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+        finite &= bool(torch.isfinite(logits).all())
+    launches = read_launches()
+    check(finite, f"{arch}: non-finite logits in bf16")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(n_steps, n_steps + n_profiled):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            _, cache = api.decode_step(params, cache, tokens[:, s + i], pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    stats = kernel_stats(torch, prof, wall)
+    per_step = {"kernels": stats["launches"] / n_profiled,
+                "device_idle_share": stats["device_idle_share"],
+                "top_kernels": stats["top_kernels"]}
+    if isinstance(stats["device_busy_s"], float):
+        per_step["device_busy_ms"] = stats["device_busy_s"] * 1e3 / n_profiled
+    line = {
+        "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": b,
+        "prompt_tokens": s, "decode_steps": n_steps,
+        "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+        "decode_ms_median": float(np.median(decode_ms)),
+        "decode_tokens_per_s": b * n_steps / (sum(decode_ms) / 1e3),
+        "weights_gb": weights_gb,
+        "cache_gb": sum(t.numel() * t.element_size()
+                        for t in cache_leaves(cache)) / 1e9,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "decode_profile": {"steps": n_profiled, "wall_ms_per_step":
+                           wall * 1e3 / n_profiled, **per_step},
+    }
+    if extra:
+        line["frames"] = extra[0].shape[1]
+    del params, cache
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def family_extended(torch, args, arch, s, n_steps=4, b=2):
+    """(b): fp32 at full width and depth; each decode step's logits within
+    atol = rtol = 2e-3 of the last-token logits of a prefill over the
+    sequence extended to that token."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_config, get_model
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    api = get_model(cfg)
+    params = api.init_params(
+        torch.Generator(device="cuda").manual_seed(args.seed))
+    tokens, extra = family_inputs(torch, np.random.default_rng(args.seed + 1),
+                                  cfg, b, s, n_steps, WHISPER_FRAMES, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = api.prefill(params, tokens[:, :s], *extra,
+                           max_len=s + n_steps)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    errs = []
+    for i in range(n_steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        got, cache = api.decode_step(params, cache, tokens[:, s + i], pos)
+        want, _ = api.prefill(params, tokens[:, :s + i + 1], *extra)
+        errs.append((got - want).abs().max().item())
+        check(bool(((got - want).abs() <= 2e-3 + 2e-3 * want.abs()).all()),
+              f"{arch}: fp32 decode step {i} vs extended prefill max abs "
+              f"err {errs[-1]}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"dtype": "float32", "layers": cfg.n_layers, "batch": b,
+            "prompt_tokens": s, "decode_steps": n_steps,
+            "prefill_ms": prefill_ms, "max_abs_err_by_step": errs,
+            "bound": "atol = rtol = 2e-3"}
+
+
+def family_card_vs_cpu(torch, args, arch, cut, n_steps=2, b=2):
+    """(c): fp32 at full width, depth cut to ``cut``; the same weights on
+    the card and on the CPU: logits after the prefill and each decode
+    step, and every cache tensor, within 1e-4 of the CPU's relative to
+    each tensor's largest value."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_config, get_model, params_class
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype="float32", **cut)
+    api = get_model(cfg)
+    card = api.init_params(
+        torch.Generator(device="cuda").manual_seed(args.seed))
+    host = params_class(cfg)(cfg, "cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    s = FAMILY_CPU_PROMPT
+    tokens, extra = family_inputs(torch, np.random.default_rng(args.seed + 2),
+                                  cfg, b, s, n_steps,
+                                  s // cfg.encoder_seq_ratio, "cpu")
+    runs = {}
+    for dev, params in (("cuda", card), ("cpu", host)):
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, tokens[:, :s].to(dev),
+                                    *(e.to(dev) for e in extra),
+                                    max_len=s + n_steps)
+        steps = [logits]
+        for i in range(n_steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            logits, cache = api.decode_step(params, cache,
+                                            tokens[:, s + i].to(dev), pos)
+            steps.append(logits)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (steps, cache_leaves(cache), time.perf_counter() - t0)
+    logit_errs = [rel_err(g, w) for g, w in zip(runs["cuda"][0],
+                                                runs["cpu"][0])]
+    check(len(runs["cuda"][1]) == len(runs["cpu"][1]),
+          f"{arch}: card and CPU caches differ in structure")
+    cache_errs = [rel_err(g, w) for g, w in zip(runs["cuda"][1],
+                                                runs["cpu"][1])]
+    worst = max(logit_errs + cache_errs)
+    check(worst <= 1e-4, f"{arch}: card vs CPU relative err {worst}")
+    del card, host
+    torch.cuda.empty_cache()
+    return {"dtype": "float32", "layers": cfg.n_layers,
+            "encoder_layers": cfg.n_encoder_layers, "batch": b,
+            "prompt_tokens": s, "decode_steps": n_steps,
+            "logits_rel_err_by_step": logit_errs,
+            "cache_tensors": len(cache_errs),
+            "cache_max_rel_err": max(cache_errs), "max_rel_err": worst,
+            "bound": "1e-4 of each tensor's largest value",
+            "card_s": runs["cuda"][2], "cpu_s": runs["cpu"][2],
+            "reduced": {k: [getattr(full, k), v] for k, v in cut.items()}}
+
+
+def family_phase(torch, args, card, phase):
+    """One model family at full width on the card: (a), (b) and (c) above.
+    The path launches no hand-written kernel, as the JAX package routes
+    it: its attention certifies no static window (no flash kernel) and
+    there is no paged cache (no paged_attention); both counts must stay 0
+    through the whole phase."""
+    from repro_torch.models.registry import get_config
+
+    arch, b, s, n_steps, cut = FAMILY_PHASES[phase]
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          f"{phase}: fp32 matmuls must not run in TF32")
+    timed, launches = family_timed(torch, args, arch, b, s, n_steps)
+    extended = family_extended(torch, args, arch, s)
+    versus = family_card_vs_cpu(torch, args, arch, cut)
+    after = read_launches()
+    for name in ("flash_attention", "paged_attention"):
+        check(launches[name] == 0 and after[name] == 0,
+              f"{phase}: {name} launched on a path that routes none")
+    cfg = get_config(arch)
+    line = {
+        "phase": phase, "arch": arch, "family": cfg.family,
+        "d_model": cfg.d_model, "q_heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        **timed, "launches": launches,
+        "fp32_decode_vs_prefill": extended, "card_vs_cpu": versus,
+        "reduced": {"card_vs_cpu": versus["reduced"]}, "card": card,
+    }
+    emit(line)
+    return line
+
+
 def phase_dense_vs_paged(torch, args, card):
     """The paged path held against the dense one at full width in fp32
     (the counterpart of tests/test_wolf_kv.py:168-268)."""
@@ -2991,6 +3232,7 @@ def main() -> None:
         "serve_moe": timed("serve_moe", phase_serve_moe, card),
         "dense_vs_paged": timed("dense_vs_paged", phase_dense_vs_paged, card),
         "vlm_prefill": timed("vlm_prefill", phase_vlm_prefill, card),
+        **{p: timed(p, family_phase, card, p) for p in FAMILY_PHASES},
     }
     timed("moe_layer", phase_moe_layer, card)
     timed("allocation", phase_allocation, card)

@@ -106,3 +106,27 @@ class ModelConfig:
         if shape.name == "long_500k":
             return self.is_subquadratic
         return True
+
+    def param_count(self, *, active_only: bool = False) -> int:
+        """Parameter estimate for the 6·N·D roofline term, as the JAX
+        package counts it (xLSTM and Mamba by their projections only)."""
+        d, dh = self.d_model, self.d_head
+        attn = (d * (self.n_heads * dh) + 2 * d * (self.n_kv_heads * dh)
+                + (self.n_heads * dh) * d)
+        per_mlp = {"swiglu": 3, "gelu": 2}.get(self.mlp_type, 0) * d * self.d_ff
+        if self.n_experts:
+            experts = (self.top_k + self.n_shared_experts if active_only
+                       else self.n_experts)
+            block_mlp = experts * per_mlp + d * self.n_experts
+        else:
+            block_mlp = per_mlp
+        if self.family == "ssm":  # up/down (4d²) + qkv/gates (~2d²)
+            per_layer = 6 * d * d
+        elif self.parallel_ssm_heads:  # + mamba in/out projections
+            per_layer = attn + block_mlp + 2 * d * d
+        else:
+            per_layer = attn + block_mlp
+        total = self.n_layers * per_layer
+        if self.n_encoder_layers:  # self- and cross-attention
+            total += self.n_encoder_layers * (2 * attn + block_mlp)
+        return total + self.vocab * d * (1 if self.tie_embeddings else 2)

@@ -4,10 +4,12 @@ counterpart of ``repro.launch.serve``, plus ``--device``).
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 12 --max-new 24
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch whisper-large-v3 --requests 3 --max-new 4
 
 The model is the arch's smoke config (random weights), as in the JAX
-package's launcher; ``--arch`` takes every ported arch (the dense family,
-olmoe-1b-7b, mixtral-8x22b and llava-next-34b's text backbone).
+package's launcher; ``--arch`` takes all ten archs, each served as the
+JAX package's engine serves it: a transformer over its config.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Shared model building blocks: initializers, RMSNorm, RoPE, MLPs,
-embeddings (the serving part of ``repro.models.common``).
+"""Shared model building blocks: initializers, RMSNorm, LayerNorm, RoPE,
+MLPs, embeddings (the serving part of ``repro.models.common``).
 
 Each parameter block is an ``nn.Module`` (a container: the functions below
 apply it) whose tensors keep the JAX package's names and layouts
@@ -32,7 +32,10 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 def dense_init(t: torch.Tensor, generator, in_axis: int = 0) -> None:
     """In place: truncated normal at ±2σ with σ = fan_in^-½ (maxtext
-    style, as ``repro.models.common.dense_init``)."""
+    style, as ``repro.models.common.dense_init``). An empty tensor (an
+    MLP with d_ff = 0) has nothing to draw."""
+    if t.numel() == 0:
+        return
     w = torch.empty(t.shape, dtype=torch.float32, device=t.device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     t.copy_(w * t.shape[in_axis] ** -0.5)
@@ -69,6 +72,32 @@ def rmsnorm_apply(norm: RMSNorm, x: torch.Tensor, eps: float = 1e-5):
     return (x32 * torch.rsqrt(var + eps) * norm.scale).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, device):
+        super().__init__()
+        self.scale = _param((d,), torch.float32, device)
+        self.bias = _param((d,), torch.float32, device)
+
+    def init_(self, generator=None) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+
+def layernorm_init(d: int, device) -> LayerNorm:
+    norm = LayerNorm(d, device)
+    norm.init_()
+    return norm
+
+
+def layernorm_apply(norm: LayerNorm, x: torch.Tensor, eps: float = 1e-5):
+    """fp32 inside (the population variance); returns x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * norm.scale + norm.bias).to(x.dtype)
+
+
 # -- RoPE ---------------------------------------------------------------------
 
 def rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:
@@ -92,18 +121,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # -- MLP (dense): SwiGLU or GELU ----------------------------------------------
 
 class MLP(nn.Module):
+    """SwiGLU for ``mlp_type == "swiglu"``; every other type, "none"
+    included, is the GELU MLP, as in the JAX package's ``mlp_init``."""
+
     def __init__(self, cfg: ModelConfig, device, d_ff: int | None = None):
         super().__init__()
         d, d_ff = cfg.d_model, d_ff or cfg.d_ff
         dt = param_dtype(cfg)
-        self.mlp_type = cfg.mlp_type
-        if cfg.mlp_type == "swiglu":
+        self.swiglu = cfg.mlp_type == "swiglu"
+        if self.swiglu:
             self.wi_gate = _param((d, d_ff), dt, device)
             self.wi_up = _param((d, d_ff), dt, device)
-        elif cfg.mlp_type == "gelu":
-            self.wi = _param((d, d_ff), dt, device)
         else:
-            raise ValueError(f"no MLP of type {cfg.mlp_type!r}")
+            self.wi = _param((d, d_ff), dt, device)
         self.wo = _param((d_ff, d), dt, device)
 
     def init_(self, generator) -> None:
@@ -119,7 +149,7 @@ def mlp_init(cfg: ModelConfig, generator, d_ff: int | None = None) -> MLP:
 
 def mlp_apply(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
     """x: [batch, seq, d_model] -> same."""
-    if mlp.mlp_type == "swiglu":
+    if mlp.swiglu:
         h = F.silu(x @ mlp.wi_gate) * (x @ mlp.wi_up)
     else:
         h = F.gelu(x @ mlp.wi, approximate="tanh")

@@ -1,13 +1,18 @@
 """Arch registry: ``--arch <id>`` → config + a uniform model API (the
-counterpart of ``repro.models.registry`` for the dense, MoE and VLM
+counterpart of ``repro.models.registry``, all ten archs and six
 families).
 
     api = get_model(cfg)
     params = api.init_params(generator)           # on the generator's device
     logits, cache = api.prefill(params, tokens, extra_embeds=None,
-                                max_len=...)
+                                max_len=...)      # dense, moe, vlm
+    logits, cache = api.prefill(params, tokens, max_len=...)  # ssm, hybrid
+    logits, cache = api.prefill(params, tokens, frames, max_len=...)  # audio
     logits, cache = api.decode_step(params, cache, tokens, pos)
     cache = api.init_cache(batch, seq_len, device)
+
+The xLSTM's prefill takes ``max_len`` and drops it (its state does not
+grow), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -23,24 +28,29 @@ ARCH_MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "deepseek-7b": "deepseek_7b",
+    "xlstm-125m": "xlstm_125m",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "mixtral-8x22b": "mixtral_8x22b",
+    "hymba-1.5b": "hymba_1_5b",
     "llava-next-34b": "llava_next_34b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ALL_ARCHS = tuple(ARCH_MODULES)
 
-# the JAX package's other archs and their families, still to port
-_WAITING = {"xlstm-125m": "ssm", "hymba-1.5b": "hybrid",
-            "whisper-large-v3": "audio"}
-_WAITS = "waits for a later slice of the port (ROADMAP.md §A.6)"
+# family -> (the module under repro_torch.models that builds it, its
+# parameters' nn.Module class)
+FAMILY_MODULES = {
+    "dense": ("transformer", "Transformer"),
+    "moe": ("transformer", "Transformer"),
+    "vlm": ("transformer", "Transformer"),
+    "ssm": ("xlstm", "XLSTM"),
+    "hybrid": ("hymba", "Hymba"),
+    "audio": ("whisper", "Whisper"),
+}
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in _WAITING:
-        raise NotImplementedError(
-            f"{arch_id}: the {_WAITING[arch_id]} family {_WAITS}; "
-            f"ported: {ALL_ARCHS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{ARCH_MODULES[arch_id]}")
     return mod.CONFIG
@@ -82,27 +92,45 @@ def _seq_split(cfg: ModelConfig, seq_len: int) -> tuple[int, int]:
     return 0, seq_len
 
 
+def model_module(cfg: ModelConfig):
+    """The module of ``repro_torch.models`` that builds ``cfg``'s family."""
+    if cfg.family not in FAMILY_MODULES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return importlib.import_module(
+        f"repro_torch.models.{FAMILY_MODULES[cfg.family][0]}")
+
+
+def params_class(cfg: ModelConfig):
+    """The ``nn.Module`` class of ``cfg``'s parameters: ``cls(cfg,
+    device)`` builds it empty."""
+    return getattr(model_module(cfg), FAMILY_MODULES[cfg.family][1])
+
+
 @dataclasses.dataclass
 class ModelApi:
     cfg: ModelConfig
     init_params: Callable   # (generator) -> params
-    prefill: Callable       # (params, tokens, extra_embeds=None, max_len=None)
+    prefill: Callable       # (params, tokens, ..., max_len=None)
     #                         -> (logits, cache)
     decode_step: Callable   # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Callable    # (batch, seq_len, device) -> cache
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in _WAITING.values():
-        raise NotImplementedError(f"family {cfg.family!r} {_WAITS}")
-    from repro_torch.models import transformer as M
-
-    if cfg.family not in M.PORTED_FAMILIES:
-        raise ValueError(f"unknown family {cfg.family!r}")
-
-    def prefill(params, tokens, extra_embeds=None, max_len=None):
-        return M.prefill(params, tokens, cfg, extra_embeds=extra_embeds,
-                         max_len=max_len)
+    M = model_module(cfg)
+    if cfg.family == "audio":
+        def prefill(params, tokens, frames, max_len=None):
+            return M.prefill(params, tokens, frames, cfg, max_len=max_len)
+    elif cfg.family == "ssm":
+        def prefill(params, tokens, max_len=None):
+            return M.prefill(params, tokens, cfg)
+    elif cfg.family == "hybrid":
+        def prefill(params, tokens, max_len=None):
+            return M.prefill(params, tokens, cfg, max_len=max_len)
+    else:
+        def prefill(params, tokens, extra_embeds=None, max_len=None):
+            return M.prefill(params, tokens, cfg, extra_embeds=extra_embeds,
+                             max_len=max_len)
 
     return ModelApi(
         cfg=cfg,

@@ -3,13 +3,15 @@
 deepseek-7b, granite-20b, deepseek-coder-33b), the mixture-of-experts
 family (olmoe-1b-7b, mixtral-8x22b: ``models/moe.py`` in place of the MLP)
 and the VLM backbone (llava-next-34b: precomputed patch embeddings,
-``extra_embeds``, go before the text).
+``extra_embeds``, go before the text). Positions are RoPE or, with
+``use_rope=False``, a learned absolute table (``pos_embed``).
 
-The JAX package stacks the layers and drives them with ``lax.scan``; here
-they are an ``nn.ModuleList`` and a Python loop. Per-layer windows stay
-data (``window_schedule``). What serving does not need waits for later
-slices (ROADMAP.md §A): the other families, learned absolute positions and
-``loss_fn`` raise ``NotImplementedError``.
+As in the JAX package, the module builds a transformer over any config,
+whatever its family (the serving engine does so for every arch). The JAX
+package stacks the layers and drives them with ``lax.scan``; here they
+are an ``nn.ModuleList`` and a Python loop. Per-layer windows stay data
+(``window_schedule``). Training waits for a later slice (ROADMAP.md
+§A.7): ``loss_fn`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,27 +30,15 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.moe import MoE, moe_apply
 
-_WAITS = "waits for a later slice of the port (ROADMAP.md §A)"
-
-PORTED_FAMILIES = ("dense", "moe", "vlm")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is what this module ports: the dense, MoE and
-    VLM families with RoPE."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} {_WAITS}")
-    if not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: learned absolute positions {_WAITS}")
+_WAITS = "waits for a later slice of the port (ROADMAP.md §A.7)"
 
 
 def window_schedule(cfg: ModelConfig) -> torch.Tensor:
-    """[L] int32 per-layer window on the host (0 = full attention)."""
+    """[L] int32 per-layer window on the host (0 = full attention). A
+    global layer past the last (a depth-cut config) is dropped, as the JAX
+    package's scatter drops an out-of-range index."""
     win = torch.full((cfg.n_layers,), cfg.sliding_window, dtype=torch.int32)
-    if cfg.global_attn_layers:
-        win[list(cfg.global_attn_layers)] = 0
+    win[[i for i in cfg.global_attn_layers if i < cfg.n_layers]] = 0
     return win
 
 
@@ -73,7 +63,6 @@ def _ffn(block: "Block", x, cfg: ModelConfig):
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        check_ported(cfg)
         self.ln1 = C.RMSNorm(cfg.d_model, device)
         self.attn = Attention(cfg, device)
         self.ln2 = C.RMSNorm(cfg.d_model, device)
@@ -98,8 +87,9 @@ def block_forward(block: Block, x, positions, window: int, cfg: ModelConfig):
     (x, (k, v)) so that prefill can build the KV cache."""
     h = _norm(block.ln1, x, cfg)
     q, k, v = qkv_project(block.attn, h)
-    q = C.apply_rope(q, positions, cfg.rope_theta)
-    k = C.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.use_rope:
+        q = C.apply_rope(q, positions, cfg.rope_theta)
+        k = C.apply_rope(k, positions, cfg.rope_theta)
     # uniform-window archs certify the static window: the flash kernel's call
     ws = cfg.sliding_window if not cfg.global_attn_layers else -1
     attn = chunked_attention(q, k, v, window, causal=True, window_static=ws)
@@ -114,8 +104,9 @@ def block_decode(block: Block, x, k_cache, v_cache, kv_pos, pos, slot,
     are updated in place at ``slot`` [B]. Returns x."""
     h = _norm(block.ln1, x, cfg)
     q, k, v = qkv_project(block.attn, h)
-    q = C.apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = C.apply_rope(k, pos[:, None], cfg.rope_theta)
+    if cfg.use_rope:
+        q = C.apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = C.apply_rope(k, pos[:, None], cfg.rope_theta)
     bidx = torch.arange(x.shape[0], device=x.device)
     k_cache.index_put_((bidx, slot), k[:, 0])
     v_cache.index_put_((bidx, slot), v[:, 0])
@@ -125,22 +116,26 @@ def block_decode(block: Block, x, k_cache, v_cache, kv_pos, pos, slot,
 
 
 class Transformer(nn.Module):
-    """embedding (embed [V, d], unembed [d, V]), layers, final_norm."""
+    """embedding (embed [V, d], unembed [d, V]), layers, final_norm, and
+    with ``use_rope=False`` pos_embed [max_position, d]."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.embedding = C.Embedding(cfg, device)
         self.layers = nn.ModuleList(
             Block(cfg, device) for _ in range(cfg.n_layers))
         self.final_norm = C.RMSNorm(cfg.d_model, device)
+        self.pos_embed = (None if cfg.use_rope else C._param(
+            (cfg.max_position, cfg.d_model), C.param_dtype(cfg), device))
 
     def init_(self, generator) -> None:
         self.embedding.init_(generator)
         for block in self.layers:
             block.init_(generator)
         self.final_norm.init_(generator)
+        if self.pos_embed is not None:
+            C.embed_init(self.pos_embed, generator)
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
@@ -150,14 +145,19 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
     return params
 
 
-def _input_embeds(params: Transformer, tokens, extra_embeds=None):
+def _input_embeds(params: Transformer, tokens, extra_embeds=None,
+                  position_offset=0):
     """Token embeddings [B, S, d], after the stub frontend's precomputed
     ``extra_embeds`` [B, S', d] where given (cast to the model's dtype),
-    and positions [S] over the whole sequence."""
+    and positions [S] over the whole sequence from ``position_offset``
+    (an int, or [B, 1] per sequence); learned positions are added."""
     x = C.embed_tokens(params.embedding, tokens)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-    return x, torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device) + position_offset
+    if params.pos_embed is not None:
+        x = x + params.pos_embed[positions.long()]
+    return x, positions
 
 
 def forward_hidden(params: Transformer, tokens, cfg: ModelConfig, *,
@@ -232,7 +232,8 @@ def decode_step(params: Transformer, cache: dict, tokens, pos,
     """One token for every sequence: tokens [B], pos [B] absolute position
     of the new token. The cache is updated in place. Returns (logits [B, V]
     fp32, cache)."""
-    x, _ = _input_embeds(params, tokens[:, None])
+    x, _ = _input_embeds(params, tokens[:, None],
+                         position_offset=pos[:, None])
     s_alloc = cache["k"].shape[2]
     slot = (pos % s_alloc).long()
     bidx = torch.arange(x.shape[0], device=x.device)

@@ -16,8 +16,9 @@ kernel), evicts, and runs the manager's compaction moves (the gc_compact
 kernel). The host control plane is the JAX package's, decision for
 decision: eviction draws from ``np.random.default_rng(seed)`` as there, so
 the port's engine and the JAX package's give the same move lists. The
-model's random weights come from a ``torch.Generator`` on the engine's
-device.
+model is a transformer over the config whatever its family (xLSTM, Hymba
+and Whisper configs included), as the JAX package's engine builds it; its
+random weights come from a ``torch.Generator`` on the engine's device.
 """
 
 from __future__ import annotations

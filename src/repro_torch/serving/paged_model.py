@@ -5,7 +5,9 @@ Shares parameters with ``models.transformer`` (the same module tree), but
 each layer's KV lives in the global block pool and decode attention goes
 through the paged-attention kernel, which reads Wolf-KV's block tables and
 validity masks. This is the device data path of the serving engine; the
-host control plane is ``kvcache/manager.py``. Where the JAX package returns
+host control plane is ``kvcache/manager.py``. A model with
+``use_rope=False`` gets no positions at all here: the JAX package's paged
+model adds no learned ones. Where the JAX package returns
 new pools, the port writes them in place (``index_put_``, and the
 gc_compact kernel for compaction) and returns the same dict.
 """
@@ -49,8 +51,9 @@ def paged_decode_step(params: Transformer, cfg: ModelConfig, pools: dict,
     for block, k_pool, v_pool in zip(params.layers, pools["k"], pools["v"]):
         h = _norm(block.ln1, x, cfg)
         q, k, v = qkv_project(block.attn, h)
-        q = C.apply_rope(q, pos[:, None], cfg.rope_theta)
-        k = C.apply_rope(k, pos[:, None], cfg.rope_theta)
+        if cfg.use_rope:
+            q = C.apply_rope(q, pos[:, None], cfg.rope_theta)
+            k = C.apply_rope(k, pos[:, None], cfg.rope_theta)
         k_pool.index_put_((wb, ws), k[:, 0])
         v_pool.index_put_((wb, ws), v[:, 0])
         attn = paged_attention(q[:, 0], k_pool, v_pool, tables, lengths,
@@ -75,8 +78,9 @@ def paged_prefill(params: Transformer, cfg: ModelConfig, pools: dict,
     for block, k_pool, v_pool, win in layers:
         h = _norm(block.ln1, x, cfg)
         q, k, v = qkv_project(block.attn, h)
-        q = C.apply_rope(q, positions, cfg.rope_theta)
-        k = C.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.use_rope:
+            q = C.apply_rope(q, positions, cfg.rope_theta)
+            k = C.apply_rope(k, positions, cfg.rope_theta)
         attn = chunked_attention(q, k, v, win, causal=True)
         x = x + torch.einsum("bshk,hkd->bsd", attn, block.attn.wo)
         x = x + _ffn(block, _norm(block.ln2, x, cfg), cfg)

@@ -39,7 +39,12 @@ from repro_torch.kernels.write_path import ops as wp_ops
 from repro_torch.kernels.write_run import kernel as wr_kernel
 from repro_torch.kernels.write_run import ref as wr_ref
 from repro_torch.models import moe
-from repro_torch.models.registry import get_config, smoke_config
+from repro_torch.models.registry import (
+    get_config,
+    get_model,
+    params_class,
+    smoke_config,
+)
 from repro_torch.serving.engine import Request, ServingEngine
 
 K, B, LBA = 24, 8, 128
@@ -962,3 +967,67 @@ def test_card_moe_engine_control_plane_matches_cpu(cuda):
     assert runs[0][1] == (cfg.n_layers * runs[0][0][0]["steps"],
                           len(runs[0][0][1]))
     assert runs[1][1] == (0, 0)
+
+
+def _leaves(cache):
+    """A cache's tensors (dicts, lists, tuples of them) in order."""
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in _leaves(cache[k])]
+    if isinstance(cache, (list, tuple)):
+        return [t for c in cache for t in _leaves(c)]
+    return [cache]
+
+
+def _rel_close(got, want, tol=1e-4):
+    """Within ``tol`` of the CPU's tensor, relative to its largest value."""
+    scale = max(want.abs().max().item(), 1.0)
+    assert (got.cpu() - want).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b",
+                                  "whisper-large-v3", "learned-positions"])
+def test_family_on_card_matches_cpu(cuda, arch):
+    """Each of the last three families at smoke width in fp32 (and a
+    transformer with learned positions), the same weights on the card and
+    on the CPU: a prefill of 40 tokens (past Hymba's window of 16) and two
+    decode steps, logits and every cache tensor within 1e-4. The three
+    families' paths launch no hand-written kernel; the dense transformer
+    certifies its window, so its card prefill runs the flash kernel once a
+    layer."""
+    if arch == "learned-positions":
+        cfg = dataclasses.replace(smoke_config(get_config("internlm2-1.8b")),
+                                  use_rope=False)
+    else:
+        cfg = smoke_config(get_config(arch))
+    api = get_model(cfg)
+    card = api.init_params(torch.Generator(device=cuda).manual_seed(0))
+    host = params_class(cfg)(cfg, "cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(1)
+    b, s, n_steps = 2, 40, 2
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s + n_steps)))
+    extra = ()
+    if cfg.frontend == "audio_frames":
+        extra = (torch.from_numpy(rng.normal(size=(b, 20, cfg.d_model))
+                                  .astype(np.float32) * 0.5),)
+    n_launch = (flash_kernel.launches, paged_kernel.launches)
+    runs = []
+    for dev, params in ((cuda, card), ("cpu", host)):
+        logits, cache = api.prefill(params, tokens[:, :s].to(dev),
+                                    *(e.to(dev) for e in extra),
+                                    max_len=s + n_steps)
+        steps = [logits]
+        for i in range(n_steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            logits, cache = api.decode_step(params, cache,
+                                            tokens[:, s + i].to(dev), pos)
+            steps.append(logits)
+        runs.append(steps + _leaves(cache))
+    flash = cfg.n_layers if arch == "learned-positions" else 0
+    assert (flash_kernel.launches, paged_kernel.launches) == (
+        n_launch[0] + flash, n_launch[1])
+    assert len(runs[0]) == len(runs[1])
+    for got, want in zip(*runs):
+        assert got.is_cuda and got.dtype == want.dtype
+        _rel_close(got, want)

@@ -52,41 +52,142 @@ def test_configs_equal_field_by_field(arch):
         {k: dataclasses.asdict(v) for k, v in ref_base.SHAPES.items()}
 
 
+@pytest.mark.parametrize("arch", ref_registry.ALL_ARCHS)
+def test_every_arch_config_and_param_count(arch):
+    """All ten archs: every field, the smoke reduction and the parameter
+    estimate (full and active-only) equal the JAX package's."""
+    assert registry.ALL_ARCHS == ref_registry.ALL_ARCHS
+    cfg, ref_cfg = registry.get_config(arch), ref_registry.get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    for c, r in ((cfg, ref_cfg), (registry.smoke_config(cfg),
+                                  ref_registry.smoke_config(ref_cfg))):
+        assert dataclasses.asdict(c) == dataclasses.asdict(r)
+        for active_only in (False, True):
+            assert c.param_count(active_only=active_only) == \
+                r.param_count(active_only=active_only)
+    assert registry.FAMILY_MODULES[cfg.family]
+
+
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "xlstm-125m", "whisper-large-v3"])
 def test_other_families_raise(arch):
-    """The MoE family is ported (olmoe-1b-7b resolves to the JAX
-    package's config and builds); the SSM and audio families still raise,
-    naming ROADMAP.md, from the registry and from the transformer."""
+    """No family raises any more: each arch resolves to the JAX package's
+    config and builds through ``get_model`` into its family's module; and,
+    as the JAX package's serving engine does, a transformer builds over
+    the config whatever its family (xLSTM's ``mlp_type="none"`` is the
+    GELU MLP, learned positions where ``use_rope=False``)."""
     ref_cfg = ref_registry.get_config(arch)
+    cfg = registry.get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    smoke = registry.smoke_config(cfg)
+    params = registry.get_model(smoke).init_params(
+        torch.Generator().manual_seed(0))
+    assert isinstance(params, registry.params_class(smoke))
     if arch == "olmoe-1b-7b":
-        cfg = registry.get_config(arch)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
-        params = registry.get_model(registry.smoke_config(cfg)).init_params(
-            torch.Generator().manual_seed(0))
         assert params.layers[0].moe.router.dtype == torch.float32
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_config(arch)
-    cfg = dataclasses.replace(
-        registry.smoke_config(registry.get_config("internlm2-1.8b")),
-        family=ref_cfg.family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    as_lm = transformer.init_params(torch.Generator().manual_seed(0), smoke)
+    ref_tree = ref_registry.get_model(dataclasses.replace(
+        ref_registry.smoke_config(ref_cfg), family="dense")).init_params(
+            jax.random.PRNGKey(0))
+    own = convert.params_to_numpy(as_lm)
+    assert jax.tree_util.tree_structure(own) == \
+        jax.tree_util.tree_structure(ref_tree)
+    assert (as_lm.pos_embed is None) == cfg.use_rope
 
 
 def test_unported_entry_points_raise():
-    """Training and learned absolute positions wait for later slices
-    (``extra_embeds`` is ported: tests/test_torch_vlm.py)."""
+    """Training waits for a later slice and raises, naming ROADMAP.md
+    §A.7; learned absolute positions are ported (``pos_embed``)."""
     cfg = registry.smoke_config(registry.get_config("internlm2-1.8b"))
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.7"):
         transformer.loss_fn(params, {"tokens": tokens}, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(torch.Generator().manual_seed(0),
-                                dataclasses.replace(cfg, use_rope=False))
+    learned = transformer.init_params(torch.Generator().manual_seed(0),
+                                      dataclasses.replace(cfg, use_rope=False))
+    assert learned.pos_embed.shape == (cfg.max_position, cfg.d_model)
+    assert abs(learned.pos_embed.std().item() - 0.02) < 0.001
+
+
+@pytest.fixture(scope="module")
+def learned():
+    """internlm2-1.8b at smoke width with learned absolute positions."""
+    cfg = dataclasses.replace(
+        registry.smoke_config(registry.get_config("internlm2-1.8b")),
+        use_rope=False)
+    ref_cfg = dataclasses.replace(
+        ref_registry.smoke_config(ref_registry.get_config("internlm2-1.8b")),
+        use_rope=False)
+    ref_params = ref_registry.get_model(ref_cfg).init_params(
+        jax.random.PRNGKey(5))
+    params = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, ref_params), cfg, "cpu")
+    return cfg, ref_cfg, ref_params, params
+
+
+@pytest.mark.parametrize("max_len", [None, 16])
+def test_learned_positions_prefill_and_decode_match(learned, max_len):
+    """``use_rope=False``: pos_embed added at the prompt's positions and
+    at each decode position; logits and K within 1e-4 of the JAX
+    package's (``max_len`` None: decode wraps onto slot 0)."""
+    cfg, ref_cfg, ref_params, params = learned
+    ref_api, api = ref_registry.get_model(ref_cfg), registry.get_model(cfg)
+    b, s, n_steps = 2, 13, 3
+    tokens = np.random.default_rng(8).integers(
+        0, cfg.vocab, (b, s + n_steps)).astype(np.int32)
+    want, ref_cache = ref_api.prefill(ref_params, jnp.asarray(tokens[:, :s]),
+                                      max_len=max_len)
+    got, cache = api.prefill(params, _t(tokens[:, :s]), max_len=max_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for i in range(n_steps):
+        pos = np.full(b, s + i, np.int32)
+        want, ref_cache = ref_api.decode_step(
+            ref_params, ref_cache, jnp.asarray(tokens[:, s + i]),
+            jnp.asarray(pos))
+        got, cache = api.decode_step(params, cache, _t(tokens[:, s + i]),
+                                     _t(pos))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(cache["k"].numpy(),
+                                   np.asarray(ref_cache["k"]), **TOL)
+    np.testing.assert_array_equal(cache["kv_pos"].numpy(),
+                                  np.asarray(ref_cache["kv_pos"]))
+
+
+def test_learned_positions_paged_decode_matches(learned):
+    """The paged model adds no learned positions (the JAX package's adds
+    none either): paged_prefill and two paged_decode_steps on the same
+    manager decisions, logits and pools within 1e-4."""
+    from repro.serving import paged_model as ref_pm
+    from repro_torch.kvcache.manager import WolfKVManager
+    from repro_torch.serving import paged_model
+    from test_torch_serving import _decode_inputs, _reserve
+
+    cfg, ref_cfg, ref_params, params = learned
+    b, s, page, n_blocks, max_pages = 2, 20, 8, 48, 6
+    tokens = np.random.default_rng(9).integers(
+        0, cfg.vocab, (b, s + 2)).astype(np.int32)
+    mgr = WolfKVManager(n_blocks, page, 1, adaptive=False)
+    wb, ws = _reserve(mgr, b, s)
+    want, ref_pools = ref_pm.paged_prefill(
+        ref_params, ref_cfg, ref_pm.init_pools(ref_cfg, n_blocks, page),
+        jnp.asarray(tokens[:, :s]), jnp.asarray(wb), jnp.asarray(ws))
+    got, pools = paged_model.paged_prefill(
+        params, cfg, paged_model.init_pools(cfg, n_blocks, page, "cpu"),
+        _t(tokens[:, :s]), _t(wb), _t(ws))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for i in range(2):
+        tables, valid, lengths, wb1, ws1 = _decode_inputs(
+            mgr, range(b), max_pages)
+        pos = np.full(b, s + i, np.int32)
+        want, ref_pools = ref_pm.paged_decode_step(
+            ref_params, ref_cfg, ref_pools, *map(jnp.asarray, (
+                tables, valid, lengths, wb1, ws1, tokens[:, s + i], pos)))
+        got, pools = paged_model.paged_decode_step(
+            params, cfg, pools, *map(_t, (
+                tables, valid, lengths, wb1, ws1, tokens[:, s + i], pos)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(pools[name].numpy(),
+                                   np.asarray(ref_pools[name]), **TOL)
 
 
 def test_init_statistics():
@@ -102,6 +203,29 @@ def test_init_statistics():
     assert abs(e.std().item() - 0.02) < 0.001
     assert torch.equal(params.final_norm.scale, torch.ones(cfg.d_model))
     assert not any(p.requires_grad for p in params.parameters())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_learned_positions_params_roundtrip(dtype):
+    """A ``use_rope=False`` transformer's tree (``pos_embed`` beside the
+    layers) across ``convert`` and back, leaf for leaf, dtypes kept."""
+    cfg = dataclasses.replace(
+        registry.smoke_config(registry.get_config("granite-20b")),
+        dtype=dtype, use_rope=False)
+    tree = jax.tree_util.tree_map(
+        np.asarray, ref_registry.get_model(cfg).init_params(
+            jax.random.PRNGKey(0)))
+    assert "pos_embed" in tree
+    params = convert.params_from_numpy(tree, cfg, "cpu")
+    back = convert.params_to_numpy(params)
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(tree)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(tree)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.astype(np.float32),
+                                      b.astype(np.float32))
+    assert params.pos_embed.dtype == getattr(torch, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -154,6 +278,34 @@ def test_norm_rope_mlp_match_reference():
         np.testing.assert_allclose(
             common.mlp_apply(mlp, _t(x)).numpy(),
             np.asarray(ref_common.mlp_apply(tree, x, c)), **TOL)
+
+
+def test_mlp_of_type_none_is_gelu_and_takes_no_width():
+    """Every type but "swiglu" is the GELU MLP, as the JAX package's
+    ``mlp_init`` has it; xlstm-125m's own config (``mlp_type="none"``,
+    d_ff = 0) builds empty matrices and adds nothing (the JAX package's
+    init divides by the zero fan-in there and raises)."""
+    cfg = registry.get_config("xlstm-125m")
+    mlp = common.mlp_init(cfg, torch.Generator().manual_seed(0))
+    assert mlp.wi.shape == (cfg.d_model, 0) and mlp.wo.shape == (0, cfg.d_model)
+    x = torch.randn(2, 3, cfg.d_model).to(torch.bfloat16)
+    assert torch.equal(common.mlp_apply(mlp, x), torch.zeros_like(x))
+    with pytest.raises(ZeroDivisionError):
+        ref_common.mlp_init(jax.random.PRNGKey(0), ref_registry.get_config(
+            "xlstm-125m"))
+    smoke = registry.smoke_config(cfg)
+    tree = jax.tree_util.tree_map(np.asarray, ref_common.mlp_init(
+        jax.random.PRNGKey(3), ref_registry.smoke_config(
+            ref_registry.get_config("xlstm-125m"))))
+    assert set(tree) == {"wi", "wo"}
+    mlp = common.MLP(smoke, "cpu")
+    for name, t in mlp.named_parameters():
+        t.copy_(_t(tree[name]))
+    x = np.random.default_rng(4).normal(size=(2, 5, smoke.d_model)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        common.mlp_apply(mlp, _t(x)).numpy(),
+        np.asarray(ref_common.mlp_apply(tree, x, smoke)), **TOL)
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-7b", "granite-20b"])

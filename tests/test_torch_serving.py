@@ -340,14 +340,20 @@ def test_engine_step_reports_its_move_lists_and_logits(model):
 
 
 def test_launcher_drains_on_cpu():
-    argv = ["--requests", "4", "--max-new", "6", "--prompt-len", "8",
-            "--blocks", "96", "--page", "8"]
-    outs = []
-    for main, extra in ((ref_serve.main, []), (serve.main,
-                                               ["--device", "cpu"])):
-        buf = io.StringIO()
-        with redirect_stdout(buf):
-            assert main(argv + extra) == 0
-        outs.append(buf.getvalue().strip().splitlines()[-1])
-    assert outs[1].startswith("drained: steps=")
-    assert outs[1] == outs[0]
+    """The default arch, then the three families served as the JAX
+    engine serves them (a transformer over the config): the same
+    ``drained:`` line from both launchers."""
+    runs = [["--requests", "4", "--max-new", "6", "--prompt-len", "8",
+             "--blocks", "96", "--page", "8"]]
+    runs += [["--arch", arch, "--requests", "3", "--max-new", "4"]
+             for arch in ("xlstm-125m", "hymba-1.5b", "whisper-large-v3")]
+    for argv in runs:
+        outs = []
+        for main, extra in ((ref_serve.main, []), (serve.main,
+                                                   ["--device", "cpu"])):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                assert main(argv + extra) == 0
+            outs.append(buf.getvalue().strip().splitlines()[-1])
+        assert outs[1].startswith("drained: steps=")
+        assert outs[1] == outs[0]
