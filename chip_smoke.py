@@ -100,7 +100,8 @@ Phases, one JSON line each; any failed check exits non-zero:
               several drives, so their masked tails run; two faulty fdp
               drives and a faulty bloom drive, so the fault hook after the
               demoting drain runs) at --fleet-mix-events on the card and
-              the CPU, identical;
+              the CPU (in a process of its own, beside the card's run),
+              identical;
   fleet_endurance  64 drives of full_width_endurance's configuration, fault
               seed d and stream seed --seed + d, in lock-step, counts set
               to 0 just before: drive-writes/s, rounds, each drive's time
@@ -117,9 +118,11 @@ Phases, one JSON line each; any failed check exits non-zero:
               stream, its first --reference-endurance-writes writes,
               degrading at write 665 with 33 retired at the default seed
               and --writes; (d) (a) with write_run's runs and the
-              reference drain. Counts set to 0 just before each; seconds,
+              reference drain. Each case in a process of its own, the four
+              at once; counts set to 0 just before each; seconds,
               events/s, host syncs and launches a case (the oracle's
-              cost, no claim);
+              cost, no claim; the examples phase's fleet_sweep runs in a
+              process of its own beside it, waited for when it ends);
   serve_full_width  the Wolf-KV serving engine on internlm2-1.8b at its
               full published width in bf16 (random weights from --seed): 48
               requests of 256 prompt tokens and 256 new ones, policies
@@ -149,6 +152,39 @@ Phases, one JSON line each; any failed check exits non-zero:
               (the flash kernel at G = 7), four decode steps, each step's
               logits within 2e-3 of the last-token logits of a prefill over
               the sequence extended to that token;
+  xlstm_full_width, hymba_full_width, whisper_full_width  each family at
+              full width: bf16 at full depth timed, fp32 decode against
+              extended prefills, fp32 at a depth cut card = CPU, no kernel
+              launched (see FAMILY_PHASES);
+  train_full_width  the trainer on internlm2-1.8b at full width and depth
+              in bf16 (random weights from --seed): TokenStream batches of
+              8 x 512 in 2 microbatches, 10 steps of make_train_step, counts
+              set to 0 just before: step ms, tokens/s, peak memory, loss and
+              grad_norm at steps 1 and 10, 96 flash_attention launches a
+              step (24 layers x 2 microbatches x forward and each block's
+              recompute), every gradient finite and not all zero after step
+              1; one more step profiled (the backward's attention
+              recompute's share);
+  train_card_vs_cpu  internlm2-1.8b at full width in fp32, 2 of 24 layers,
+              2 x 256 tokens: one step (AdamW at lr 1e-3, no warmup, so
+              each element with a gradient moves by about 1e-3) on the card
+              and on the CPU from the same weights: loss within 1e-5
+              relative, every gradient within 1e-4 of its leaf's largest
+              value, params after the card's AdamW within 1e-5 of the
+              CPU's AdamW applied to the card's gradients;
+  train_families  the other nine archs at smoke_config in fp32, the same
+              step and bounds, every gradient finite; flash launches 2 a
+              layer on the transformer families, 0 on xLSTM, Hymba and
+              Whisper (the JAX package routes none there);
+  train_runner  the smoke internlm2 through TrainRunner on the card: 12
+              steps, a checkpoint every 4, a failure injected at step 6:
+              one retry, a recovery, the last checkpoint at 12, the
+              restored state on the card;
+  examples    the five examples (repro_torch.examples) on the card at
+              small arguments, each returning 0: fleet_sweep at 12,000
+              writes a drive (its wear claim needs them) in a process of
+              its own beside full_width_reference, the others one after
+              another;
   moe_layer   one MoE layer at olmoe-1b-7b's full width (d 2048, f 1024, 64
               experts, top-8) in fp32 and bf16, and at mixtral-8x22b's
               (d 6144, f 16384, 8 experts, top-2) in fp32, weights made on
@@ -184,12 +220,14 @@ import argparse
 import dataclasses
 import itertools
 import json
+import multiprocessing
 import os
 import pathlib
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -633,10 +671,12 @@ def causal_pairs(s: int, window: int) -> int:
     return w * (w + 1) // 2 + (s - w) * w if s >= w else s * (s + 1) // 2
 
 
-def flash_case(torch, dtype, hq, hkv, d, s, window, iters, card, arch):
-    """flash_attention_cuda against flash_attention_ref, causal, at one
-    sequence of s positions, beside PyTorch's scaled_dot_product_attention
-    (with the window as a mask where there is one)."""
+def flash_case(torch, dtype, hq, hkv, d, s, window, iters, card, arch,
+               b=1):
+    """flash_attention_cuda against flash_attention_ref, causal, at ``b``
+    sequences of s positions, beside PyTorch's
+    scaled_dot_product_attention (with the window as a mask where there is
+    one)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
@@ -646,7 +686,7 @@ def flash_case(torch, dtype, hq, hkv, d, s, window, iters, card, arch):
 
     tname = str(dtype).split(".")[1]
     esize = torch.finfo(dtype).bits // 8
-    q, k, v = flash_inputs(torch, dtype, hq, hkv, d, s=s)
+    q, k, v = flash_inputs(torch, dtype, hq, hkv, d, b=b, s=s)
     got = flash_attention_cuda(q, k, v, causal=True, window=window)
     want = flash_attention_ref(q, k, v, causal=True, window=window)
     err = (got.float() - want.float()).abs().max().item()
@@ -724,6 +764,11 @@ def serving_kernels(torch, args, card):
         results[("flash_attention", tname)] = flash_case(
             torch, dtype, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 2048, 0,
             iters, card, SERVE_ARCH)
+        # train_full_width's shape: a microbatch of 4 x 512
+        results[("flash_attention", tname, "train")] = flash_case(
+            torch, dtype, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+            TRAIN_SEQ, 0, iters, card, SERVE_ARCH,
+            b=TRAIN_BATCH // TRAIN_MICRO)
         for arch, s in (("mixtral-8x22b", 4608), (VLM_ARCH, 2048)):
             c = get_config(arch)
             results[("flash_attention", tname, arch)] = flash_case(
@@ -1994,6 +2039,9 @@ def prefix_run(geom, mcfg, phase, n, seed, device, **engine):
                               host_syncs=trace["host_syncs"])
 
 
+ORACLE_CASES = ("a", "b", "c", "d")
+
+
 def phase_full_width_reference(torch, args, card):
     """The reference engine on the card at Table-2 width, held to the
     split engine on the card over the same events (traces and every
@@ -2006,85 +2054,94 @@ def phase_full_width_reference(torch, args, card):
     configuration on (a)'s stream, its first --reference-endurance-writes
     writes (it degrades within them at the default seed and --writes);
     (d) (a) with fast_path=True (write_run's runs, the reference drain on
-    the heavy writes). Counts set to 0 just before each reference run and
-    read just after; the oracle's cost is reported, with no claim."""
+    the heavy writes). Each case runs in a process of its own, the four at
+    once (each is host-bound); counts set to 0 just before each reference
+    run and read just after, in its process; the oracle's cost is
+    reported, with no claim."""
+    with ProcessPoolExecutor(
+            len(ORACLE_CASES),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = [pool.submit(oracle_case, args, case, card)
+                for case in ORACLE_CASES]
+        results = [run.result() for run in runs]
+    total, lines = dict.fromkeys(read_launches(), 0), {}
+    for line, launches in results:
+        for k, v in launches.items():
+            total[k] += v
+        emit(line)
+        lines[line["case"]] = line
+    return {"launches": total, "cases": lines}
+
+
+def oracle_case(args, case, card):
+    """One case of full_width_reference, run and checked in the process
+    that calls it: (its line, its reference run's launches)."""
+    import torch
+
     from repro_torch.core import managers, workloads
     from repro_torch.core.ssd import Geometry, assert_invariants
 
     geom = Geometry(**TABLE2)
     two_modal = workloads.two_modal(geom.lba_pages, args.writes, p_hot=0.9,
                                     frac_hot=0.5)
-    churn = workloads.tpcc_churn(geom.lba_pages, args.churn_events)
     ref = dict(fast_path=False, gc_impl="reference")
-    cases = [
-        ("a", managers.wolf(), two_modal, args.reference_writes, ref),
-        ("b", managers.wolf_dynamic(), churn, args.reference_churn_events,
-         ref),
-        ("c", managers.wolf_endurance(**ENDURANCE), two_modal,
-         args.reference_endurance_writes, ref),
-        ("d", managers.wolf(), two_modal, args.reference_writes,
-         dict(fast_path=True, gc_impl="reference")),
-    ]
-    total = dict.fromkeys(read_launches(), 0)
-    split_runs, lines = {}, {}
-    for case, mcfg, phase, n, engine in cases:
-        n = min(n, phase.n_writes)  # a quick call's shorter stream
-        zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = prefix_run(geom, mcfg, phase, n, args.seed, "cuda", **engine)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = read_launches()
-        for k, v in launches.items():
-            total[k] += v
-        key = (mcfg, n)
-        if key not in split_runs:
-            split_runs[key] = prefix_run(geom, mcfg, phase, n, args.seed,
-                                         "cuda")
-        split = split_runs[key]
-        label = f"full_width_reference ({case})"
-        bad = same_run(torch, res, split)
-        check(not bad, f"{label}: reference != split engine in {bad}")
-        st = res.state
-        assert_invariants(st, label)
-        check(launches["gc_one"] > 0, f"{label}: no gc_one launch")
-        check(launches["compact_slots"] == launches["apply_write"] == 0,
-              f"{label}: a bulk drain or a per-row write ran: {launches}")
-        check((launches["write_run"] > 0) == engine["fast_path"],
-              f"{label}: {launches['write_run']} write_run launches")
-        trims = int(st.n_trim)
-        check(launches["apply_trim"] == (0 if engine["fast_path"] else trims),
-              f"{label}: {launches['apply_trim']} apply_trim launches for "
-              f"{trims} TRIMs")
-        line = {
-            "phase": "full_width_reference", "case": case,
-            "manager": mcfg.name, "engine": engine, "events": n,
-            "writes": int(st.n_app), "trims": trims,
-            "erases": int(st.n_erase), "migrations": int(st.n_mig),
-            "intervals": int(st.interval), "equal_to_split": True,
-            "wa_total": res.wa_total, "seconds": seconds,
-            "events_per_s": n / seconds, "host_syncs": res.host_syncs,
-            "launches": {k: launches[k] for k in (
-                "gc_one", "apply_trim", "write_run", "compact_slots")},
-            "card": card,
-        }
-        if case == "b":
-            check(trims > 0 and int(st.n_erase) > 0,
-                  f"{label}: {trims} TRIMs, {int(st.n_erase)} drains")
-        if mcfg.has_faults:
-            faults = endurance_line(st)
-            line.update(faults)
-            want = ENDURANCE_DEGRADED.get((args.seed, args.writes))
-            if want is not None and n > want[0]:
-                check((faults["degraded_at"], faults["retired"]) == want,
-                      f"{label}: degraded at {faults['degraded_at']} with "
-                      f"{faults['retired']} retired, not {want}")
-        emit(line)
-        lines[case] = line
-        del res
-        torch.cuda.empty_cache()
-    return {"launches": total, "cases": lines}
+    mcfg, phase, n, engine = {
+        "a": lambda: (managers.wolf(), two_modal, args.reference_writes, ref),
+        "b": lambda: (managers.wolf_dynamic(),
+                      workloads.tpcc_churn(geom.lba_pages, args.churn_events),
+                      args.reference_churn_events, ref),
+        "c": lambda: (managers.wolf_endurance(**ENDURANCE), two_modal,
+                      args.reference_endurance_writes, ref),
+        "d": lambda: (managers.wolf(), two_modal, args.reference_writes,
+                      dict(fast_path=True, gc_impl="reference")),
+    }[case]()
+    n = min(n, phase.n_writes)  # a quick call's shorter stream
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = prefix_run(geom, mcfg, phase, n, args.seed, "cuda", **engine)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    split = prefix_run(geom, mcfg, phase, n, args.seed, "cuda")
+    label = f"full_width_reference ({case})"
+    bad = same_run(torch, res, split)
+    check(not bad, f"{label}: reference != split engine in {bad}")
+    st = res.state
+    assert_invariants(st, label)
+    check(launches["gc_one"] > 0, f"{label}: no gc_one launch")
+    check(launches["compact_slots"] == launches["apply_write"] == 0,
+          f"{label}: a bulk drain or a per-row write ran: {launches}")
+    check((launches["write_run"] > 0) == engine["fast_path"],
+          f"{label}: {launches['write_run']} write_run launches")
+    trims = int(st.n_trim)
+    check(launches["apply_trim"] == (0 if engine["fast_path"] else trims),
+          f"{label}: {launches['apply_trim']} apply_trim launches for "
+          f"{trims} TRIMs")
+    line = {
+        "phase": "full_width_reference", "case": case,
+        "manager": mcfg.name, "engine": engine, "events": n,
+        "writes": int(st.n_app), "trims": trims,
+        "erases": int(st.n_erase), "migrations": int(st.n_mig),
+        "intervals": int(st.interval), "equal_to_split": True,
+        "wa_total": res.wa_total, "seconds": seconds,
+        "events_per_s": n / seconds, "host_syncs": res.host_syncs,
+        "launches": {k: launches[k] for k in (
+            "gc_one", "apply_trim", "write_run", "compact_slots")},
+        "card": card,
+    }
+    if case == "b":
+        check(trims > 0 and int(st.n_erase) > 0,
+              f"{label}: {trims} TRIMs, {int(st.n_erase)} drains")
+    if mcfg.has_faults:
+        faults = endurance_line(st)
+        line.update(faults)
+        want = ENDURANCE_DEGRADED.get((args.seed, args.writes))
+        if want is not None and n > want[0]:
+            check((faults["degraded_at"], faults["retired"]) == want,
+                  f"{label}: degraded at {faults['degraded_at']} with "
+                  f"{faults['retired']} retired, not {want}")
+    return line, launches
 
 
 def phase_allocation(torch, args, card):
@@ -2200,6 +2257,74 @@ def fleet_window(torch, args, res, d):
             "host_syncs_per_round": simulator.host_syncs / simulator.rounds}
 
 
+def mixed_fleet(args):
+    """(geometry, specs) of the mixed fleet, 14 drives: static (two
+    seeds), a two-phase static drive,
+    fdp (two seeds, and two faulty: one fails half its erase attempts
+    with 8 spares, one wears out at 1 P-E cycle), single_group, bloom
+    with §5.2 on writes (two seeds, and one failing half its attempts)
+    and on the churn op stream (two seeds), and a trimmed static drive.
+    The faulty drives run the fault hook after the demoting drain.
+    """
+    from repro_torch.core import fleet, managers, workloads
+    from repro_torch.core.ssd import Geometry
+
+    mgeom = Geometry(**FLEET_MIX_GEOM)
+    lba, n = mgeom.lba_pages, args.fleet_mix_events
+    specs = [
+        fleet.DriveSpec(managers.wolf(), (workloads.two_modal(lba, n),), 1),
+        fleet.DriveSpec(managers.wolf_lru(), (workloads.tpcc_like(lba, n),),
+                        2),
+        fleet.DriveSpec(managers.wolf(), tuple(workloads.swap_phases(
+            lba, n // 2)), 3),
+        fleet.DriveSpec(managers.fdp(), tuple(workloads.swap_phases(
+            lba, n // 2)), 4),
+        fleet.DriveSpec(managers.single_group(),
+                        (workloads.uniform(lba, n),), 5),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_like(lba, n),), 6),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_churn(lba, n),), 7),
+        fleet.DriveSpec(managers.wolf_trim_aware(), (workloads.trimmed(
+            workloads.two_modal(lba, n), 0.2),), 8),
+        fleet.DriveSpec(managers.fdp(), tuple(workloads.swap_phases(
+            lba, n // 2)), 9),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_like(lba, n),), 10),
+        fleet.DriveSpec(managers.wolf_dynamic(),
+                        (workloads.tpcc_churn(lba, n),), 11),
+        fleet.DriveSpec(managers.fdp(fault_rate=0.5, spare_blocks=8,
+                                     fault_seed=12),
+                        tuple(workloads.swap_phases(lba, n // 2)), 12),
+        fleet.DriveSpec(managers.fdp(endurance_pe_limit=1, fault_seed=13),
+                        tuple(workloads.swap_phases(lba, n // 2)), 13),
+        fleet.DriveSpec(managers.wolf_dynamic(fault_rate=0.5,
+                                              fault_seed=14),
+                        (workloads.tpcc_like(lba, n),), 14),
+    ]
+    return mgeom, specs
+
+
+def mixed_fleet_cpu(args):
+    """The mixed fleet on the CPU, in the process that calls it: (its
+    exec_meta, each drive's traces and final state as plain fields that
+    same_run reads, seconds)."""
+    import types
+
+    from repro_torch.core import fleet
+
+    mgeom, specs = mixed_fleet(args)
+    t0 = time.perf_counter()
+    res = fleet.simulate_fleet(mgeom, specs, sampler="numpy",
+                               device="cpu")
+    seconds = time.perf_counter() - t0
+    drives = [types.SimpleNamespace(
+        app=r.app, mig=r.mig, state={k: v.clone() for k, v in
+                                     r.state.items()})
+        for r in map(res.result, range(len(specs)))]
+    return res.exec_meta, drives, seconds
+
+
 def phase_fleet(torch, args, card):
     """The fleet on the card: the headline runs (D Table-2 wolf drives in
     lock-step, numpy streams) for each D of --fleet-drives with their
@@ -2299,67 +2424,32 @@ def phase_fleet(torch, args, card):
         del res
         torch.cuda.empty_cache()
 
-    # a mixed fleet of 14: static (two seeds), a two-phase static drive,
-    # fdp (two seeds, and two faulty: one fails half its erase attempts
-    # with 8 spares, one wears out at 1 P-E cycle), single_group, bloom
-    # with §5.2 on writes (two seeds, and one failing half its attempts)
-    # and on the churn op stream (two seeds), and a trimmed static drive.
-    # The faulty drives run the fault hook after the demoting drain.
-    mgeom = Geometry(**FLEET_MIX_GEOM)
-    lba, n = mgeom.lba_pages, args.fleet_mix_events
-    specs = [
-        fleet.DriveSpec(managers.wolf(), (workloads.two_modal(lba, n),), 1),
-        fleet.DriveSpec(managers.wolf_lru(), (workloads.tpcc_like(lba, n),),
-                        2),
-        fleet.DriveSpec(managers.wolf(), tuple(workloads.swap_phases(
-            lba, n // 2)), 3),
-        fleet.DriveSpec(managers.fdp(), tuple(workloads.swap_phases(
-            lba, n // 2)), 4),
-        fleet.DriveSpec(managers.single_group(),
-                        (workloads.uniform(lba, n),), 5),
-        fleet.DriveSpec(managers.wolf_dynamic(),
-                        (workloads.tpcc_like(lba, n),), 6),
-        fleet.DriveSpec(managers.wolf_dynamic(),
-                        (workloads.tpcc_churn(lba, n),), 7),
-        fleet.DriveSpec(managers.wolf_trim_aware(), (workloads.trimmed(
-            workloads.two_modal(lba, n), 0.2),), 8),
-        fleet.DriveSpec(managers.fdp(), tuple(workloads.swap_phases(
-            lba, n // 2)), 9),
-        fleet.DriveSpec(managers.wolf_dynamic(),
-                        (workloads.tpcc_like(lba, n),), 10),
-        fleet.DriveSpec(managers.wolf_dynamic(),
-                        (workloads.tpcc_churn(lba, n),), 11),
-        fleet.DriveSpec(managers.fdp(fault_rate=0.5, spare_blocks=8,
-                                     fault_seed=12),
-                        tuple(workloads.swap_phases(lba, n // 2)), 12),
-        fleet.DriveSpec(managers.fdp(endurance_pe_limit=1, fault_seed=13),
-                        tuple(workloads.swap_phases(lba, n // 2)), 13),
-        fleet.DriveSpec(managers.wolf_dynamic(fault_rate=0.5,
-                                              fault_seed=14),
-                        (workloads.tpcc_like(lba, n),), 14),
-    ]
-    zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    card_res = fleet.simulate_fleet(mgeom, specs, sampler="numpy")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read_launches()
+    # the mixed fleet: its CPU run in a process of its own, beside the
+    # card's (each is host-bound)
+    mgeom, specs = mixed_fleet(args)
+    n = args.fleet_mix_events
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_run = pool.submit(mixed_fleet_cpu, args)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_res = fleet.simulate_fleet(mgeom, specs, sampler="numpy")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        cpu_meta, cpu_drives, cpu_seconds = cpu_run.result()
     for name in ("write_run", "gc_one", "compact_slots"):
         check(launches[name] > 0, f"fleet mixed: no {name} launch")
     # static 3, fdp 4, bloom 3 and 2, single_group 1, trimmed static 1
     check(sorted(m["drives"] for m in card_res.exec_meta)
           == [1, 1, 2, 3, 3, 4],
           f"fleet mixed: sub-batches {card_res.exec_meta}")
-    t0 = time.perf_counter()
-    cpu_res = fleet.simulate_fleet(mgeom, specs, sampler="numpy",
-                                   device="cpu")
-    cpu_seconds = time.perf_counter() - t0
-    check(card_res.exec_meta == cpu_res.exec_meta,
+    check(card_res.exec_meta == cpu_meta,
           f"fleet mixed: {card_res.exec_meta} on the card, "
-          f"{cpu_res.exec_meta} on the CPU")
+          f"{cpu_meta} on the CPU")
     for i in range(len(specs)):
-        bad = same_run(torch, card_res.result(i), cpu_res.result(i))
+        bad = same_run(torch, card_res.result(i), cpu_drives[i])
         check(not bad, f"fleet mixed drive {i}: cuda != cpu in {bad}")
         assert_invariants(card_res.state(i), f"fleet mixed drive {i}")
     faulty = [i for i, sp in enumerate(specs) if sp.mcfg.has_faults]
@@ -2946,6 +3036,436 @@ def family_phase(torch, args, card, phase):
     return line
 
 
+# -- training ---------------------------------------------------------------------
+#
+# train_full_width: internlm2-1.8b at full width and depth in bf16, random
+# weights from --seed, TokenStream batches of TRAIN_BATCH x TRAIN_SEQ in
+# TRAIN_MICRO microbatches, TRAIN_STEPS steps of make_train_step. No
+# runner: a full-width checkpoint (bf16 params, fp32 m, v, master) would
+# write ~25 GB.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 10
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_LAYERS = 2, 256, 2
+TRAIN_FAMILY_SHAPE = (2, 32)  # train_families' batch and sequence
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5}
+# the compared step's AdamW: at step 1 Adam moves each element with a
+# gradient by about lr (m / sqrt(v) = sign(g)), 100 times TRAIN_TOL's
+# param bound, so an update that is missing or wrong fails it
+TRAIN_VERSUS_OPT = {"lr": 1e-3, "warmup_steps": 0}
+
+
+BACKWARD_RANGE = "flash_attention.backward"  # kernels/flash_attention/ops.py
+
+
+def attention_backward_ms(torch, cfg, b, s, iters=20):
+    """ms of one flash_attention backward at the training shape (the plain
+    chunked attention's recompute and its gradient), CUDA events."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    dt = getattr(torch, cfg.dtype)
+    q = torch.randn(b, s, cfg.n_heads, cfg.d_head, device="cuda").to(dt)
+    k, v = (torch.randn(b, s, cfg.n_kv_heads, cfg.d_head,
+                        device="cuda").to(dt) for _ in range(2))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    out = flash_attention(q, k, v, causal=True)
+    g = torch.randn_like(out)
+    return time_ms(torch, lambda: torch.autograd.grad(
+        out, (q, k, v), g, retain_graph=True), iters)
+
+
+def phase_train_full_width(torch, args, card):
+    """The trainer's main path at full width: counts set to 0 just before
+    the first step and read after the last; every parameter's gradient
+    finite and not all zero after step 1 (its first moment m = 0.1 ·
+    clip · g says so); then one more step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, TokenStream, to_device
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_loop import (
+        TrainConfig,
+        init_state,
+        make_train_step,
+    )
+
+    cfg = get_config(SERVE_ARCH)
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(api, torch.Generator(device="cuda").manual_seed(
+        args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    named = dict(state["params"].named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    n_embed = named["embedding.embed"].numel()
+    step_fn = make_train_step(api, TrainConfig(
+        opt=OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=100),
+        n_microbatches=TRAIN_MICRO))
+    stream = TokenStream(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                    seed=args.seed))
+    batches = [to_device(stream.batch(i), "cuda")
+               for i in range(TRAIN_STEPS + 1)]
+    zero_counts()
+    step_ms, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        metrics.append({k: v.item() for k, v in m.items()})
+        if i == 0:
+            for k, mom in state["opt"]["m"].items():
+                check(bool(torch.isfinite(mom).all()),
+                      f"train_full_width: gradient of {k} not finite")
+                check(bool((mom != 0).any()),
+                      f"train_full_width: gradient of {k} all zero")
+    launches = read_launches()
+    per_step = launches["flash_attention"] / TRAIN_STEPS
+    want = cfg.n_layers * TRAIN_MICRO * 2
+    check(per_step == want, f"train_full_width: {per_step} flash launches "
+          f"a step, want {want} (layers x microbatches x forward and "
+          "recompute)")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+              for m in metrics), "train_full_width: non-finite loss")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, _ = step_fn(state, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    stats = kernel_stats(torch, prof, wall, ranges=(BACKWARD_RANGE,))
+    # the range's span on the device's timeline, from the first kernel
+    # launched inside it to the last
+    cuda = torch.autograd.DeviceType.CUDA
+    span = [e for e in prof.key_averages() if e.key == BACKWARD_RANGE
+            and getattr(e, "device_type", None) == cuda]
+    span_us = sum(_device_us(e) for e in span)
+    busy = stats["device_busy_s"]
+    n_bwd = cfg.n_layers * TRAIN_MICRO  # one backward a layer a microbatch
+    bwd_ms = attention_backward_ms(torch, cfg, TRAIN_BATCH // TRAIN_MICRO,
+                                   TRAIN_SEQ)
+    median = float(np.median(step_ms))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # 6 N T: forward and backward products of every weight but the
+    # embedding lookup, without the remat's second forward
+    flops = 6 * (n_params - n_embed) * tokens
+    line = {
+        "phase": "train_full_width", "arch": SERVE_ARCH, "dtype": cfg.dtype,
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+        "init_s": init_s, "step_ms": step_ms, "step_ms_median": median,
+        "tokens_per_s": tokens / (median / 1e3),
+        "mfu_6nt": flops / (median / 1e3) / PEAK_FLOPS[cfg.dtype],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss": [metrics[0]["loss"], metrics[-1]["loss"]],
+        "grad_norm": [metrics[0]["grad_norm"], metrics[-1]["grad_norm"]],
+        "lr": [metrics[0]["lr"], metrics[-1]["lr"]],
+        "flash_launches_per_step": per_step,
+        "gradients_finite_nonzero": len(state["opt"]["m"]),
+        "launches": launches,
+        "profiled_step": {
+            "wall_ms": wall * 1e3, "kernels": stats["launches"],
+            "device_busy_ms": busy * 1e3 if isinstance(busy, float)
+            else busy,
+            "device_idle_share": stats["device_idle_share"],
+            "attention_backward_calls": sum(e.count for e in span),
+            "attention_backward_span_ms": span_us / 1e3 if span_us
+            else "not measured",
+            "top_kernels": stats["top_kernels"],
+        },
+        "attention_backward_ms_each": bwd_ms,
+        "attention_backward_step_share": bwd_ms * n_bwd / median,
+        "card": card,
+    }
+    emit(line)
+    del state, batches
+    torch.cuda.empty_cache()
+    return line
+
+
+def adamw_step(params, grads):
+    """params after one AdamW step (TRAIN_VERSUS_OPT) on ``grads`` from a
+    fresh state, updated in place."""
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_update
+    from repro_torch.train.train_loop import state_from_params
+
+    state = state_from_params(params)
+    adamw_update(grads, state["opt"], dict(params.named_parameters()),
+                 OptimizerConfig(**TRAIN_VERSUS_OPT))
+    return dict(params.named_parameters())
+
+
+def train_versus(torch, cfg, batch, seed):
+    """One step on the card and on the CPU from the same weights (drawn on
+    the CPU) and batch, each checked against TRAIN_TOL: the loss and every
+    gradient card against CPU, every card gradient finite, and the card's
+    params after its AdamW step against the CPU's AdamW applied to the
+    card's gradients. Adam's first step is about lr * sign(g), so where a
+    gradient is near 0 the two sides' rounding can flip an element's sign;
+    the gradients are held card = CPU, the update card = CPU on the same
+    gradients. Counts set to 0 just before the card's step; returns (line,
+    the card's launches)."""
+    from repro_torch.models.registry import get_model, params_class
+    from repro_torch.train.train_loop import value_and_grad
+
+    api = get_model(cfg)
+    host = params_class(cfg)(cfg, "cpu")
+    host.init_(torch.Generator().manual_seed(seed))
+    card = params_class(cfg)(cfg, "cuda")
+    card.load_state_dict(host.state_dict())
+    replay = params_class(cfg)(cfg, "cpu")
+    replay.load_state_dict(host.state_dict())
+    zero_counts()
+    t0 = time.perf_counter()
+    card.requires_grad_(True)
+    l_card, g_card = value_and_grad(api, card, {k: v.cuda()
+                                                for k, v in batch.items()})
+    p_card = adamw_step(card, g_card)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    host.requires_grad_(True)
+    l_cpu, g_cpu = value_and_grad(api, host, batch)
+    cpu_s = time.perf_counter() - t0
+    p_replay = adamw_step(replay, {k: g.cpu() for k, g in g_card.items()})
+    loss_err = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+    start = host.state_dict()
+    grad_err = param_err = move = 0.0
+    for k, g in g_card.items():
+        check(bool(torch.isfinite(g).all()),
+              f"{cfg.arch_id}: gradient of {k} not finite on the card")
+        grad_err = max(grad_err, (g.cpu() - g_cpu[k]).abs().max().item()
+                       / max(g_cpu[k].abs().max().item(), 1e-30))
+        got = p_card[k].detach().cpu()
+        param_err = max(param_err, rel_err(got, p_replay[k].detach()))
+        move = max(move, (got - start[k]).abs().max().item())
+    check(loss_err <= TRAIN_TOL["loss"] and grad_err <= TRAIN_TOL["grad"]
+          and param_err <= TRAIN_TOL["param"],
+          f"{cfg.arch_id}: card vs CPU loss {loss_err}, gradients {grad_err}, "
+          f"params {param_err}")
+    check(move >= 10 * TRAIN_TOL["param"],
+          f"{cfg.arch_id}: AdamW moved no parameter past {move}")
+    return {"loss": l_cpu.item(), "loss_rel_err": loss_err,
+            "grad_max_rel_err": grad_err, "param_max_err": param_err,
+            "param_max_move": move, "opt": TRAIN_VERSUS_OPT,
+            "leaves": len(g_card), "card_s": card_s, "cpu_s": cpu_s,
+            "flash_launches": launches["flash_attention"]}, launches
+
+
+def phase_train_card_vs_cpu(torch, args, card):
+    """internlm2-1.8b at full width in fp32, depth cut to TRAIN_CPU_LAYERS:
+    one step on the card (the flash kernel forward and in each block's
+    recompute) and on the CPU, held to TRAIN_TOL."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, TokenStream, to_device
+    from repro_torch.models.registry import get_config
+
+    full = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, dtype="float32",
+                              n_layers=TRAIN_CPU_LAYERS)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "train_card_vs_cpu: fp32 matmuls must not run in TF32")
+    batch = to_device(TokenStream(DataConfig(
+        cfg.vocab, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, seed=args.seed)).batch(0),
+        "cpu")
+    versus, launches = train_versus(torch, cfg, batch, args.seed)
+    check(versus["flash_launches"] == 2 * cfg.n_layers,
+          "train_card_vs_cpu: want one flash launch a layer forward and one "
+          "in its recompute")
+    line = {"phase": "train_card_vs_cpu", "arch": SERVE_ARCH,
+            "dtype": "float32", "layers": cfg.n_layers,
+            "batch": TRAIN_CPU_BATCH, "seq": TRAIN_CPU_SEQ, **versus,
+            "bounds": TRAIN_TOL, "launches": launches,
+            "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+            "card": card}
+    emit(line)
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_train_families(torch, args, card):
+    """The other nine archs at smoke_config in fp32: one step card = CPU
+    within TRAIN_TOL, every gradient finite; flash launches 2 a layer where
+    the arch certifies a static window (the dense, MoE and VLM families),
+    0 where the JAX package routes none (xLSTM, Hymba, Whisper)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.registry import (
+        ALL_ARCHS,
+        get_config,
+        get_model,
+        smoke_config,
+    )
+
+    b, s = TRAIN_FAMILY_SHAPE
+    shape = ShapeConfig("train_families", seq_len=s, global_batch=b,
+                        kind="train")
+    archs, total = {}, {}
+    for arch in ALL_ARCHS:
+        if arch == SERVE_ARCH:
+            continue
+        cfg = smoke_config(get_config(arch))
+        batch = get_model(cfg).make_train_batch(
+            shape, torch.Generator().manual_seed(args.seed))
+        versus, launches = train_versus(torch, cfg, batch, args.seed)
+        want = 2 * cfg.n_layers if cfg.family in ("dense", "moe", "vlm") \
+            else 0
+        check(versus["flash_launches"] == want,
+              f"train_families {arch}: {versus['flash_launches']} flash "
+              f"launches, want {want}")
+        archs[arch] = {"family": cfg.family, "layers": cfg.n_layers,
+                       **versus}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    line = {"phase": "train_families", "dtype": "float32", "batch": b,
+            "seq": s, "archs": archs, "bounds": TRAIN_TOL,
+            "launches": total, "card": card}
+    emit(line)
+    return line
+
+
+def phase_train_runner(torch, args, card):
+    """The smoke internlm2 through TrainRunner on the card: 12 steps, a
+    checkpoint every 4, a failure injected at step 6: one retry, a
+    recovery, the last checkpoint at 12, the restored state on the card.
+    Counts set to 0 just before."""
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, TokenStream, to_device
+    from repro_torch.models.registry import get_config, get_model, smoke_config
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.fault_tolerance import RunnerConfig, TrainRunner
+    from repro_torch.train.train_loop import (
+        TrainConfig,
+        init_state,
+        make_train_step,
+    )
+
+    api = get_model(smoke_config(get_config(SERVE_ARCH)))
+    stream = TokenStream(DataConfig(api.cfg.vocab, 64, 8, seed=args.seed))
+    with tempfile.TemporaryDirectory() as d:
+        runner = TrainRunner(
+            make_train_step(api, TrainConfig(n_microbatches=2)),
+            init_state(api, torch.Generator(device="cuda").manual_seed(
+                args.seed)),
+            lambda step: to_device(stream.batch(step), "cuda"),
+            RunnerConfig(total_steps=12, checkpoint_every=4,
+                         checkpoint_dir=d),
+            failure_at=6)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = runner.run()
+        seconds = time.perf_counter() - t0
+        latest = ck.latest_step(d)
+    launches = read_launches()
+    on_card = all(t.is_cuda for _, t in ck.state_leaves(runner.state))
+    check(out["final_step"] == 12 and out["retries"] == 1
+          and out["recoveries"] >= 1 and latest == 12 and on_card,
+          f"train_runner: {out['final_step']} steps, {out['retries']} "
+          f"retries, {out['recoveries']} recoveries, latest {latest}, "
+          f"state on the card {on_card}")
+    line = {"phase": "train_runner", "arch": SERVE_ARCH, "config": "smoke",
+            "final_step": out["final_step"], "retries": out["retries"],
+            "recoveries": out["recoveries"], "stragglers": out["stragglers"],
+            "latest_step": latest, "state_on_card": on_card,
+            "loss": out["metrics"]["loss"].item(),
+            "step_ms_median": float(np.median(runner.step_times)) * 1e3,
+            "seconds": seconds, "launches": launches, "card": card}
+    emit(line)
+    return line
+
+
+# each example's arguments on the card. fleet_sweep's wear sweep levels
+# erases twice as evenly as greedy only from ~12,000 writes a drive on,
+# which takes ~1.5-2 min (host-bound): it runs in a process of its own
+# beside full_width_reference (the oracle, whose seconds carry no claim)
+# and is waited for as soon as the oracle ends (run_beside).
+EXAMPLE_ARGS = {
+    "quickstart": ["--writes", "1000"],
+    "ssd_experiment": ["--writes", "2000", "--blocks-per-lun", "16",
+                       "--managers", "wolf,fdp,single"],
+    "serve_wolf_kv": ["--requests", "6", "--max-new", "16"],
+    "train_lm": ["--steps", "20"],
+}
+BESIDE_EXAMPLE = ("fleet_sweep", ["--writes", "12000"])
+
+
+def run_beside(fn):
+    """(fn(), BESIDE_EXAMPLE's run): the example runs on the card in a
+    process of its own while ``fn`` runs and is waited for as soon as
+    ``fn`` returns (killed if ``fn`` fails). Its run records its exit code,
+    its last line, its seconds until it was waited for, and whether it was
+    still running when ``fn`` returned."""
+    name, argv = BESIDE_EXAMPLE
+    argv = argv + ["--device", "cuda"]
+    src = str(pathlib.Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        out = fn()
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    running = proc.poll() is None
+    text, _ = proc.communicate(timeout=900)
+    lines = text.strip().splitlines()
+    return out, {name: {"rc": proc.returncode, "args": argv,
+                        "seconds_until_waited": time.perf_counter() - t0,
+                        "running_when_fn_returned": running,
+                        "own_process": True,
+                        "last_line": lines[-1] if lines else ""}}
+
+
+def phase_examples(torch, args, card, beside):
+    """Each example's main on the card at EXAMPLE_ARGS (train_lm with a
+    fresh checkpoint directory), one after another, counts set to 0 just
+    before the first, and ``beside`` (run_beside's run of
+    BESIDE_EXAMPLE): each must return 0. Output is kept to each example's
+    last line."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    zero_counts()
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, argv in EXAMPLE_ARGS.items():
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            argv = argv + ["--device", "cuda"]
+            if name == "train_lm":
+                argv += ["--checkpoint-dir", d]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(argv)
+            lines = buf.getvalue().strip().splitlines()
+            runs[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                          "args": argv, "last_line": lines[-1] if lines
+                          else ""}
+            check(rc == 0, f"examples: {name} returned {rc!r}: "
+                  f"{runs[name]['last_line']}")
+    launches = read_launches()
+    for name, run in beside.items():
+        runs[name] = run
+        check(run["rc"] == 0, f"examples: {name} exited {run['rc']}: "
+              f"{run['last_line']}")
+    line = {"phase": "examples", "examples": runs, "launches": launches,
+            "card": card}
+    emit(line)
+    return line
+
+
 def phase_dense_vs_paged(torch, args, card):
     """The paged path held against the dense one at full width in fp32
     (the counterpart of tests/test_wolf_kv.py:168-268)."""
@@ -3058,12 +3578,14 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def kernel_stats(torch, prof, wall):
+def kernel_stats(torch, prof, wall, ranges=()):
     """Device busy time, idle share, launches and the top kernels of a
-    device-only profile."""
+    profile. ``ranges``: names of record_function ranges, whose spans the
+    profiler also puts on the device's timeline; they are not kernels."""
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == cuda]
+            if getattr(e, "device_type", None) == cuda
+            and e.key not in ranges]
     busy_us = sum(_device_us(e) for e in kern)
     top = sorted(kern, key=_device_us, reverse=True)[:6]
     return {
@@ -3178,9 +3700,9 @@ def main() -> None:
         int(x) for x in v.split(",")], default=[1, 8, 64, 256])
     ap.add_argument("--fleet-window", type=int, default=5000)
     ap.add_argument("--fleet-mix-events", type=int, default=20_000)
-    ap.add_argument("--reference-writes", type=int, default=20_000)
+    ap.add_argument("--reference-writes", type=int, default=5000)
     ap.add_argument("--reference-churn-events", type=int, default=10_000)
-    ap.add_argument("--reference-endurance-writes", type=int, default=2000)
+    ap.add_argument("--reference-endurance-writes", type=int, default=1000)
     ap.add_argument("--phases", type=lambda v: v.split(","), default=None,
                     help="run only these phases (comma-separated; the "
                     "kernel summary line needs kernels and every path)")
@@ -3225,14 +3747,30 @@ def main() -> None:
         "fleet": timed("fleet", phase_fleet, card),
         "fleet_endurance": timed("fleet_endurance", phase_fleet_endurance,
                                  card),
-        "full_width_reference": timed("full_width_reference",
-                                      phase_full_width_reference, card),
+    }
+    def oracle():  # BESIDE_EXAMPLE runs beside it: its seconds carry no claim
+        return timed("full_width_reference", phase_full_width_reference,
+                     card)
+
+    if args.phases is None or "examples" in args.phases:
+        paths["full_width_reference"], beside = run_beside(oracle)
+    else:
+        paths["full_width_reference"], beside = oracle(), {}
+    paths |= {
         "serve_full_width": timed("serve_full_width", phase_serve_full_width,
                                   card),
         "serve_moe": timed("serve_moe", phase_serve_moe, card),
         "dense_vs_paged": timed("dense_vs_paged", phase_dense_vs_paged, card),
         "vlm_prefill": timed("vlm_prefill", phase_vlm_prefill, card),
         **{p: timed(p, family_phase, card, p) for p in FAMILY_PHASES},
+        "train_full_width": timed("train_full_width", phase_train_full_width,
+                                  card),
+        "train_card_vs_cpu": timed("train_card_vs_cpu",
+                                   phase_train_card_vs_cpu, card),
+        "train_families": timed("train_families", phase_train_families,
+                                card),
+        "train_runner": timed("train_runner", phase_train_runner, card),
+        "examples": timed("examples", phase_examples, card, beside),
     }
     timed("moe_layer", phase_moe_layer, card)
     timed("allocation", phase_allocation, card)
@@ -3274,7 +3812,8 @@ def main() -> None:
         "paged_attention": [(t, *a) for t in ("bfloat16", "float32")
                             for a in ((), (MOE_ARCH,))],
         "flash_attention": [(t, *a) for t in ("float32", "bfloat16")
-                            for a in ((), ("mixtral-8x22b",), (VLM_ARCH,))],
+                            for a in ((), ("mixtral-8x22b",), (VLM_ARCH,),
+                                      ("train",))],
     }
     summary = []
     for name in replaces:
@@ -3325,7 +3864,7 @@ def main() -> None:
             "kernel_ms", "kernel_ms_queued", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "max_abs_err")}
             for c in cases[name] if c[-1] in (MOE_ARCH, "mixtral-8x22b",
-                                              VLM_ARCH)}
+                                              VLM_ARCH, "train")}
         if shapes:
             row["shapes"] = shapes
         summary.append(row)

@@ -39,8 +39,14 @@ def check_args(q, k, v) -> None:
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns [B, Sq, Hq, D]."""
+    """Launch the kernel on the current stream; returns [B, Sq, Hq, D].
+    The kernel has no backward: with grad mode on, inputs that require a
+    gradient are refused (``ops.flash_attention`` wraps it in an
+    ``autograd.Function`` for them), so no gradient is cut silently."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_cuda: inputs require a gradient; "
+                           "call ops.flash_attention, which carries it")
     check_args(q, k, v)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_cuda: tensors on {q.device}")

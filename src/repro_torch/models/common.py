@@ -1,13 +1,15 @@
 """Shared model building blocks: initializers, RMSNorm, LayerNorm, RoPE,
-MLPs, embeddings (the serving part of ``repro.models.common``).
+MLPs, embeddings and the chunked cross-entropy loss (the counterpart of
+``repro.models.common``).
 
 Each parameter block is an ``nn.Module`` (a container: the functions below
 apply it) whose tensors keep the JAX package's names and layouts
 (``wi_gate [d, d_ff]``, ``embed [V, d]``, …), so ``repro_torch.convert``
 can carry a JAX parameter tree across leaf for leaf. Modules are built
 empty on a device; ``init_(generator)`` fills them from an explicit
-``torch.Generator`` (its device is the modules' device). Parameters take
-no gradient: this slice serves, training comes later.
+``torch.Generator`` (its device is the modules' device). Parameters are
+built with ``requires_grad=False``, as serving wants them;
+``train.train_loop.init_state`` turns the gradient on for training.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -26,6 +29,23 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def _needs_grad(a) -> bool:
+    if isinstance(a, nn.Module):
+        return any(p.requires_grad for p in a.parameters())
+    return isinstance(a, torch.Tensor) and a.requires_grad
+
+
+def remat_call(fn, *args):
+    """``fn(*args)``; with grad mode on and something among the arguments
+    (a tensor, or a module's parameters) requiring a gradient, its
+    activations are not kept but recomputed in the backward
+    (``jax.checkpoint``'s counterpart). Otherwise (serving) a plain
+    call."""
+    if torch.is_grad_enabled() and any(map(_needs_grad, args)):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # -- initializers -------------------------------------------------------------
@@ -190,3 +210,33 @@ def logits_last(emb: Embedding, x_last: torch.Tensor) -> torch.Tensor:
     """Decode-path logits for the final position only, in fp32.
     x_last: [B, d] -> [B, V]."""
     return x_last.float() @ unembed_matrix(emb).float()
+
+
+def chunked_xent_loss(emb: Embedding, x: torch.Tensor, labels: torch.Tensor,
+                      *, chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy over the labels >= 0, computed in
+    chunks of ``min(chunk, S)`` along the sequence so the full [B, S, V]
+    logits never exist at once (``repro.models.common.chunked_xent_loss``).
+
+    x [B, S, d] final hidden states; labels [B, S] int targets, -1 where no
+    loss is taken. The tail is padded with -1 labels; each chunk's logits
+    are fp32 against ``unembed_matrix``; the chunk sums are added in order
+    and divided by the number of valid labels (1 at least)."""
+    w = unembed_matrix(emb).float()
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int32, device=x.device)
+    for lo in range(0, s + pad, chunk):
+        logits = x[:, lo:lo + chunk].float() @ w  # [B, c, V]
+        lc = labels[:, lo:lo + chunk].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, lc.clamp(min=0)[..., None])[..., 0]
+        valid = lc >= 0
+        total = total + torch.where(valid, lse - picked, 0.0).sum()
+        count = count + valid.sum(dtype=torch.int32)
+    return total / count.clamp(min=1)

@@ -9,6 +9,9 @@ JAX package.
 Attention runs the plain ``chunked_attention`` / ``decode_attention``,
 as the JAX package routes it (no static window certified, so no flash
 kernel); the Mamba path is ``models/ssm.py``'s chunked scan.
+``loss_fn`` is the next-token cross-entropy; with grad mode on each layer
+is recomputed in the backward, as the JAX package's ``jax.checkpoint`` of
+its scan body.
 """
 
 from __future__ import annotations
@@ -90,6 +93,37 @@ def _fuse(block: Block, attn_out, mamba_out, cfg: ModelConfig):
 
 def _mlp(block: Block, x, cfg: ModelConfig):
     return x + C.mlp_apply(block.mlp, _norm(block.ln2, x, cfg))
+
+
+def _block_forward(block: Block, x, positions, window: int,
+                   cfg: ModelConfig):
+    """Full-sequence block from a fresh Mamba state: attention ∥ Mamba on
+    the same normalised input, fused, then the MLP. x [B, S, d]."""
+    h = _norm(block.ln1, x, cfg)
+    q, k, v = qkv_project(block.attn, h)
+    q = C.apply_rope(q, positions, cfg.rope_theta)
+    k = C.apply_rope(k, positions, cfg.rope_theta)
+    attn = out_project(block.attn,
+                       chunked_attention(q, k, v, window, causal=True))
+    mam = ssm.mamba_apply(block.mamba, h, chunk=SCAN_CHUNK)
+    return _mlp(block, x + _fuse(block, attn, mam, cfg), cfg)
+
+
+def forward_hidden(params: Hymba, tokens, cfg: ModelConfig):
+    """Final hidden states [B, S, d]; under autograd each layer is
+    recomputed in the backward (``common.remat_call``)."""
+    x = C.embed_tokens(params.embedding, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for block, win in zip(params.layers, window_schedule(cfg).tolist()):
+        x = C.remat_call(_block_forward, block, x, positions, win, cfg)
+    return _norm(params.final_norm, x, cfg)
+
+
+def loss_fn(params: Hymba, batch: dict, cfg: ModelConfig):
+    """Next-token cross-entropy (``repro.models.hymba.loss_fn``). batch:
+    tokens [B, S], labels [B, S]."""
+    x = forward_hidden(params, batch["tokens"], cfg)
+    return C.chunked_xent_loss(params.embedding, x, batch["labels"])
 
 
 # -- serving: KV cache (attention) and recurrent state (Mamba) -----------------

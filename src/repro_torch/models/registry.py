@@ -4,6 +4,7 @@ families).
 
     api = get_model(cfg)
     params = api.init_params(generator)           # on the generator's device
+    loss = api.loss_fn(params, batch)             # batch as train_batch_specs
     logits, cache = api.prefill(params, tokens, extra_embeds=None,
                                 max_len=...)      # dense, moe, vlm
     logits, cache = api.prefill(params, tokens, max_len=...)  # ssm, hybrid
@@ -21,7 +22,9 @@ import dataclasses
 import importlib
 from typing import Any, Callable
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 ARCH_MODULES = {
     "granite-20b": "granite_20b",
@@ -110,10 +113,48 @@ def params_class(cfg: ModelConfig):
 class ModelApi:
     cfg: ModelConfig
     init_params: Callable   # (generator) -> params
+    loss_fn: Callable       # (params, batch) -> scalar fp32 loss
     prefill: Callable       # (params, tokens, ..., max_len=None)
     #                         -> (logits, cache)
     decode_step: Callable   # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Callable    # (batch, seq_len, device) -> cache
+
+    def train_batch_specs(self, shape: ShapeConfig) -> dict:
+        """{name: (shape, dtype)} of a training batch for ``shape``: tokens
+        and labels, and for a stub frontend extra_embeds [B, S', d] in the
+        model's dtype. A vision model's S' patches come out of S (labels
+        cover the text); an audio model's S' frames come on top of S
+        (labels cover all S tokens), as in the JAX package."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        s_front, s_text = _seq_split(cfg, s)
+        specs = {
+            "tokens": ((b, s_text), torch.int32),
+            "labels": ((b, s if cfg.frontend == "audio_frames" else s_text),
+                       torch.int32),
+        }
+        if cfg.frontend != "none":
+            specs["extra_embeds"] = ((b, s_front, cfg.d_model),
+                                     getattr(torch, cfg.dtype))
+        return specs
+
+    def make_train_batch(self, shape: ShapeConfig,
+                         generator: torch.Generator) -> dict:
+        """A random batch of ``train_batch_specs(shape)`` on the
+        generator's device: integers uniform over the vocabulary, embeddings
+        normal × 0.02, drawn in the names' sorted order."""
+        out = {}
+        specs = self.train_batch_specs(shape)
+        for name, (shp, dtype) in sorted(specs.items()):
+            if dtype == torch.int32:
+                out[name] = torch.randint(
+                    0, self.cfg.vocab, shp, generator=generator,
+                    device=generator.device, dtype=torch.int32)
+            else:
+                out[name] = (torch.randn(shp, generator=generator,
+                                         device=generator.device)
+                             * 0.02).to(dtype)
+        return out
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
@@ -135,6 +176,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         init_params=lambda gen: M.init_params(gen, cfg),
+        loss_fn=lambda p, b: M.loss_fn(p, b, cfg),
         prefill=prefill,
         decode_step=lambda p, c, t, pos: M.decode_step(p, c, t, pos, cfg),
         init_cache=lambda b, s, device="cuda": M.init_cache(cfg, b, s,

@@ -10,8 +10,10 @@ As in the JAX package, the module builds a transformer over any config,
 whatever its family (the serving engine does so for every arch). The JAX
 package stacks the layers and drives them with ``lax.scan``; here they
 are an ``nn.ModuleList`` and a Python loop. Per-layer windows stay data
-(``window_schedule``). Training waits for a later slice (ROADMAP.md
-§A.7): ``loss_fn`` raises ``NotImplementedError``.
+(``window_schedule``). ``loss_fn`` is the next-token cross-entropy; with
+grad mode on, ``forward_hidden`` recomputes each block in the backward
+(``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint`` of
+its scan body does.
 """
 
 from __future__ import annotations
@@ -29,8 +31,6 @@ from repro_torch.models.attention import (
     qkv_project,
 )
 from repro_torch.models.moe import MoE, moe_apply
-
-_WAITS = "waits for a later slice of the port (ROADMAP.md §A.7)"
 
 
 def window_schedule(cfg: ModelConfig) -> torch.Tensor:
@@ -164,11 +164,13 @@ def forward_hidden(params: Transformer, tokens, cfg: ModelConfig, *,
                    extra_embeds=None, collect_kv: bool = False):
     """Final hidden states [B, S, d] (and, with ``collect_kv``, the
     per-layer K and V stacked to [L, B, S, Hkv, D]); S counts the
-    ``extra_embeds`` rows before the text."""
+    ``extra_embeds`` rows before the text. Under autograd each block is
+    recomputed in the backward (``common.remat_call``)."""
     x, positions = _input_embeds(params, tokens, extra_embeds)
     ks, vs = [], []
     for block, win in zip(params.layers, window_schedule(cfg).tolist()):
-        x, (k, v) = block_forward(block, x, positions, win, cfg)
+        x, (k, v) = C.remat_call(block_forward, block, x, positions, win,
+                                 cfg)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -176,8 +178,17 @@ def forward_hidden(params: Transformer, tokens, cfg: ModelConfig, *,
     return (x, (torch.stack(ks), torch.stack(vs))) if collect_kv else x
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
-    raise NotImplementedError(f"loss_fn and training {_WAITS}")
+def loss_fn(params: Transformer, batch: dict, cfg: ModelConfig):
+    """Next-token cross-entropy (``repro.models.transformer.loss_fn``).
+    batch: tokens [B, S], labels [B, S], and for a stub frontend
+    extra_embeds [B, S', d], whose positions take no loss (label -1)."""
+    extra = batch.get("extra_embeds")
+    x = forward_hidden(params, batch["tokens"], cfg, extra_embeds=extra)
+    labels = batch["labels"]
+    if extra is not None:
+        pad = labels.new_full(extra.shape[:2], -1)
+        labels = torch.cat([pad, labels], dim=1)
+    return C.chunked_xent_loss(params.embedding, x, labels)
 
 
 # -- serving -------------------------------------------------------------------

@@ -8,7 +8,10 @@ cross-attention to the encoder's output) are real. LayerNorm and GELU;
 the encoder adds sinusoidal positions, the decoder learned ones
 (``pos_embed``, ``max_position`` rows). Every attention is the plain
 ``chunked_attention`` / ``decode_attention``, as the JAX package routes
-it (no static window, so no flash kernel).
+it (no static window, so no flash kernel). ``loss_fn`` is the decoder's
+next-token cross-entropy over the batch's frames (``extra_embeds``); with
+grad mode on each encoder and decoder layer is recomputed in the backward,
+as the JAX package's ``jax.checkpoint`` of its scan bodies.
 """
 
 from __future__ import annotations
@@ -108,15 +111,21 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Whisper:
     return params
 
 
+def _enc_block(block: EncBlock, x, cfg: ModelConfig):
+    q, k, v = qkv_project(block.attn, _ln(block.ln1, x, cfg))
+    x = x + out_project(block.attn, chunked_attention(q, k, v, 0,
+                                                      causal=False))
+    return x + C.mlp_apply(block.mlp, _ln(block.ln2, x, cfg))
+
+
 def encode(params: Whisper, frames, cfg: ModelConfig):
-    """frames [B, S_enc, d] stub embeddings -> encoder states."""
+    """frames [B, S_enc, d] stub embeddings -> encoder states; under
+    autograd each layer is recomputed in the backward
+    (``common.remat_call``)."""
     s = frames.shape[1]
     x = frames + _sinusoidal(s, cfg.d_model, frames.device).to(frames.dtype)
     for block in params.encoder:
-        q, k, v = qkv_project(block.attn, _ln(block.ln1, x, cfg))
-        attn = chunked_attention(q, k, v, 0, causal=False)
-        x = x + out_project(block.attn, attn)
-        x = x + C.mlp_apply(block.mlp, _ln(block.ln2, x, cfg))
+        x = C.remat_call(_enc_block, block, x, cfg)
     return _ln(params.enc_norm, x, cfg)
 
 
@@ -153,6 +162,25 @@ def _dec_block(block: DecBlock, x, enc_k, enc_v, cfg: ModelConfig,
     x = x + out_project(block.cross_attn, cross)
     x = x + C.mlp_apply(block.mlp, _ln(block.ln2, x, cfg))
     return x, (k, v)
+
+
+def forward_hidden(params: Whisper, tokens, frames, cfg: ModelConfig):
+    """The decoder's final hidden states [B, S, d] over tokens [B, S],
+    cross-attending to the encoded frames [B, S_enc, d]."""
+    enc_ks, enc_vs = _cross_kv(params, encode(params, frames, cfg))
+    s = tokens.shape[1]
+    x = C.embed_tokens(params.embedding, tokens) + params.pos_embed[:s][None]
+    for block, ek, ev in zip(params.decoder, enc_ks, enc_vs):
+        x, _ = C.remat_call(_dec_block, block, x, ek, ev, cfg)
+    return _ln(params.final_norm, x, cfg)
+
+
+def loss_fn(params: Whisper, batch: dict, cfg: ModelConfig):
+    """Next-token cross-entropy (``repro.models.whisper.loss_fn``). batch:
+    tokens [B, S], labels [B, S], extra_embeds [B, S_enc, d] (the
+    frames)."""
+    x = forward_hidden(params, batch["tokens"], batch["extra_embeds"], cfg)
+    return C.chunked_xent_loss(params.embedding, x, batch["labels"])
 
 
 # -- serving -------------------------------------------------------------------

@@ -6,7 +6,9 @@ mLSTM blocks use the xLSTM paper's pre-up-projection (pf = 2); sLSTM
 blocks a post gated FFN. The blocks are an ``nn.ModuleList`` of the two
 kinds (the JAX package's plain list). Serving state is O(1) in the
 context: a recurrent state per layer, no KV cache. Positions play no
-part.
+part. ``loss_fn`` is the next-token cross-entropy; with grad mode on each
+block is recomputed in the backward, as the JAX package's
+``jax.checkpoint`` of each block.
 """
 
 from __future__ import annotations
@@ -138,6 +140,23 @@ def _slstm_block_decode(block: SLSTMBlock, x_t, state, cfg: ModelConfig):
     y, new_state = ssm.slstm_decode_step(block.cell, state,
                                          _norm(block.ln, x_t, cfg))
     return _slstm_ffn(block, x_t + y, cfg), new_state
+
+
+def forward_hidden(params: XLSTM, tokens, cfg: ModelConfig):
+    """Final hidden states [B, S, d] from a fresh state; under autograd
+    each block is recomputed in the backward (``common.remat_call``)."""
+    x = C.embed_tokens(params.embedding, tokens)
+    for kind, block in zip(layer_kinds(cfg), params.blocks):
+        fn = _mlstm_block if kind == "mlstm" else _slstm_block
+        x, _ = C.remat_call(fn, block, x, cfg)
+    return _norm(params.final_norm, x, cfg)
+
+
+def loss_fn(params: XLSTM, batch: dict, cfg: ModelConfig):
+    """Next-token cross-entropy (``repro.models.xlstm.loss_fn``). batch:
+    tokens [B, S], labels [B, S]."""
+    x = forward_hidden(params, batch["tokens"], cfg)
+    return C.chunked_xent_loss(params.embedding, x, batch["labels"])
 
 
 # -- serving: a recurrent state instead of a KV cache ---------------------------

@@ -1031,3 +1031,139 @@ def test_family_on_card_matches_cpu(cuda, arch):
     for got, want in zip(*runs):
         assert got.is_cuda and got.dtype == want.dtype
         _rel_close(got, want)
+
+
+# -- training: the flash kernel under autograd, a step, a restore -------------------
+
+def _train_state(cfg, device, seed=0):
+    from repro_torch.train.train_loop import state_from_params
+
+    params = params_class(cfg)(cfg, "cpu")
+    params.init_(torch.Generator().manual_seed(seed))
+    return state_from_params(params.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_autograd_matches_plain_gradients(cuda, dtype, tol):
+    """flash_attention under autograd at internlm2-1.8b's heads (16 query,
+    8 KV, D 128), causal: the forward is the kernel (one launch), the
+    gradients of q, k and v those of the plain chunked attention, within
+    ``tol`` of each gradient's largest value."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.attention import chunked_attention
+
+    rng = np.random.default_rng(5)
+    shapes = ((2, 256, 16, 128), (2, 256, 8, 128), (2, 256, 8, 128))
+    base = [torch.from_numpy((rng.normal(size=s) * 0.5).astype(np.float32))
+            .to(cuda, dtype) for s in shapes]
+    w = torch.from_numpy(rng.normal(size=shapes[0]).astype(np.float32)).to(
+        cuda, dtype)
+    grads = []
+    for fn in (lambda q, k, v: flash_attention(q, k, v, causal=True),
+               lambda q, k, v: chunked_attention(q, k, v, 0, causal=True)):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        n_launch = flash_kernel.launches
+        out = fn(q, k, v)
+        grads.append((out.detach(), *torch.autograd.grad(
+            (out.float() * w.float()).sum(), (q, k, v))))
+        launched = flash_kernel.launches - n_launch
+    assert launched == 0  # the plain path ran last
+    _assert_close(grads[0][0], grads[1][0], dtype)
+    for got, want in zip(grads[0][1:], grads[1][1:]):
+        assert torch.isfinite(got).all()
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_inputs_under_autograd(cuda):
+    """flash_attention_cuda has no backward: with grad mode on it refuses
+    inputs that require a gradient, launching nothing; the op carries them
+    through its autograd.Function; without grad mode the kernel runs."""
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+
+    q, k, v = (torch.randn(1, 64, 4, 64, device=cuda).requires_grad_(True)
+               for _ in range(3))
+    n_launch = flash_kernel.launches
+    with pytest.raises(RuntimeError, match="require a gradient"):
+        flash_kernel.flash_attention_cuda(q, k, v)
+    assert flash_kernel.launches == n_launch
+    out = FlashAttention.apply(q, k, v, True, 0)
+    assert out.requires_grad and flash_kernel.launches == n_launch + 1
+    with torch.no_grad():
+        flash_kernel.flash_attention_cuda(q, k, v)
+    assert flash_kernel.launches == n_launch + 2
+
+
+@pytest.mark.cuda
+def test_train_step_card_matches_cpu(cuda):
+    """One step of internlm2 at smoke width in fp32, two microbatches, AdamW
+    at lr 1e-3 without warmup (each element with a gradient moves by about
+    1e-3), the same weights and batch on the card and on the CPU: the loss
+    and the gradient norm within 1e-5 relative, the first moment (the
+    clipped gradient times 1 - b1) within 1e-4 of each leaf's largest
+    value; the card's params within 1e-5 of the CPU's AdamW applied to the
+    card's first moment over 1 - b1 (Adam's first step is about
+    lr * sign(g), which rounding can flip where g is near 0, so the update
+    is held on the card's own gradients); the card's flash kernel ran once
+    a layer a microbatch in the forward and once more in each block's
+    recompute."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream, to_device
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_update
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    cfg = smoke_config(get_config("internlm2-1.8b"))
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(get_model(cfg),
+                           TrainConfig(opt=opt, n_microbatches=2))
+    batch = TokenStream(DataConfig(cfg.vocab, 64, 4)).batch(0)
+    out = {}
+    for dev in (cuda, "cpu"):
+        n_launch = flash_kernel.launches
+        state, metrics = step(_train_state(cfg, dev), to_device(batch, dev))
+        out[str(dev)] = (state, {k: v.item() for k, v in metrics.items()},
+                         flash_kernel.launches - n_launch)
+    (card, m_card, n_card), (host, m_host, n_host) = out["cuda"], out["cpu"]
+    assert (n_card, n_host) == (cfg.n_layers * 2 * 2, 0)
+    for k in ("loss", "grad_norm"):
+        assert abs(m_card[k] - m_host[k]) <= 1e-5 * abs(m_host[k])
+    moment = {k: m.cpu() for k, m in card["opt"]["m"].items()}
+    for k, m in moment.items():
+        want = host["opt"]["m"][k]
+        assert (m - want).abs().max() <= 1e-4 * want.abs().max(), k
+    replay = _train_state(cfg, "cpu")
+    start = {k: p.detach().clone()
+             for k, p in replay["params"].named_parameters()}
+    adamw_update({k: m / (1 - opt.b1) for k, m in moment.items()},
+                 replay["opt"], dict(replay["params"].named_parameters()),
+                 opt)
+    move = 0.0
+    for (name, p), (_, p_want) in zip(card["params"].named_parameters(),
+                                      replay["params"].named_parameters()):
+        assert p.is_cuda
+        p = p.detach().cpu()
+        assert (p - p_want.detach()).abs().max().item() <= 1e-5, name
+        move = max(move, (p - start[name]).abs().max().item())
+    assert move >= 1e-4
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_card(cuda, tmp_path):
+    """A bf16 state saved from the CPU and restored with device="cuda":
+    every leaf on the card, bit-equal, params still taking gradients."""
+    from repro_torch.train import checkpoint as ck
+
+    cfg = dataclasses.replace(smoke_config(get_config("internlm2-1.8b")),
+                              dtype="bfloat16")
+    state = _train_state(cfg, "cpu", seed=3)
+    ck.save_checkpoint(tmp_path, state, 5)
+    restored, step = ck.restore_checkpoint(tmp_path, state, device=cuda)
+    assert step == 5
+    got, want = ck.state_leaves(restored), ck.state_leaves(state)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (k, a), (_, b) in zip(got, want):
+        assert a.is_cuda and a.dtype == b.dtype, k
+        assert torch.equal(a.detach().cpu(), b.detach()), k
+    assert all(p.requires_grad for p in restored["params"].parameters())

@@ -95,12 +95,21 @@ def test_other_families_raise(arch):
 
 
 def test_unported_entry_points_raise():
-    """Training waits for a later slice and raises, naming ROADMAP.md
-    §A.7; learned absolute positions are ported (``pos_embed``)."""
+    """Both entry points that once raised are ported now (the name is kept
+    from when they raised): ``loss_fn`` gives a finite fp32 scalar near ln
+    V at initialisation, and a batch without labels is refused (its
+    values are held to the JAX package's in test_torch_train.py); learned
+    absolute positions are ported (``pos_embed``)."""
     cfg = registry.smoke_config(registry.get_config("internlm2-1.8b"))
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.7"):
+    labels = torch.randint(0, cfg.vocab, (4, 32),
+                           generator=torch.Generator().manual_seed(1))
+    loss = transformer.loss_fn(params, {"tokens": labels, "labels": labels},
+                               cfg)
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    assert abs(loss.item() - np.log(cfg.vocab)) < 1.0
+    with pytest.raises(KeyError, match="labels"):
         transformer.loss_fn(params, {"tokens": tokens}, cfg)
     learned = transformer.init_params(torch.Generator().manual_seed(0),
                                       dataclasses.replace(cfg, use_rope=False))
