@@ -164,14 +164,24 @@ Phases, one JSON line each; any failed check exits non-zero:
               step (24 layers x 2 microbatches x forward and each block's
               recompute), every gradient finite and not all zero after step
               1; one more step profiled (the backward's attention
-              recompute's share);
+              recompute's share); one more step under utils.opcount on the
+              card against launch.dryrun.run_cell's count of the same step
+              on the meta device: flops equal, the flash kernel's cost
+              records equal its 96 launches, bytes within 1% (the ops that
+              differ listed), the meta peak within 10% of
+              max_memory_allocated over the step;
   train_card_vs_cpu  internlm2-1.8b at full width in fp32, 2 of 24 layers,
               2 x 256 tokens: one step (AdamW at lr 1e-3, no warmup, so
               each element with a gradient moves by about 1e-3) on the card
               and on the CPU from the same weights: loss within 1e-5
               relative, every gradient within 1e-4 of its leaf's largest
               value, params after the card's AdamW within 1e-5 of the
-              CPU's AdamW applied to the card's gradients;
+              CPU's AdamW applied to the card's gradients; the card's fp32
+              gradients (all but the embedding tables) through
+              sharding.gradient's int8 codec with the CPU's noise:
+              payloads, scales, error-feedback gradients and residuals, and
+              compressed_all_reduce_mean as one participant, bit-equal to
+              the CPU's;
   train_families  the other nine archs at smoke_config in fp32, the same
               step and bounds, every gradient finite; flash launches 2 a
               layer on the transformer families, 0 on xLSTM, Hymba and
@@ -199,6 +209,13 @@ Phases, one JSON line each; any failed check exits non-zero:
               0.9 / 0.1, over its OP) on the card and on the CPU: card =
               CPU, the optimum no worse than the closed form, the hill
               climber within 0.5% of it;
+  dryrun      python -m repro_torch.launch.dryrun --all over the card,
+              single and multi meshes, started before the kernels build in
+              a niced process group of its own (it needs no card) and
+              joined here: one line a cell (flops, bytes, peak GB, fits in
+              80 GB, dominant term, roofline_fraction, trace_s), every cell
+              without error, xlstm-125m's train_4k and prefill_32k counted
+              on the card through the recurrences' trip-count rule;
   profile     short runs of the simulator's two Table-2 paths (a fresh
               drive's first events, and a window after --run-warm events)
               and of the serving engine under torch.profiler: device busy
@@ -231,9 +248,15 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# dense peak rates of the operations' type (H100 SXM data sheet)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+# the H100 SXM data sheet's rates: HBM bytes/s, and the dense peak of each
+# operation type
+from repro_torch.utils.roofline import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS,
+    model_flops,
+)
+
 TABLE2 = dict(n_luns=8, blocks_per_lun=1024, pages_per_block=128,
               lba_pba=0.70)
 
@@ -664,13 +687,6 @@ def paged_case(torch, rng, dtype, kv, hq, iters, card, cold: bool):
     return line
 
 
-def causal_pairs(s: int, window: int) -> int:
-    """(query, key) pairs a causal pass over s positions scores, with a
-    sliding window (0 = full)."""
-    w = window or s
-    return w * (w + 1) // 2 + (s - w) * w if s >= w else s * (s + 1) // 2
-
-
 def flash_case(torch, dtype, hq, hkv, d, s, window, iters, card, arch,
                b=1):
     """flash_attention_cuda against flash_attention_ref, causal, at ``b``
@@ -680,12 +696,12 @@ def flash_case(torch, dtype, hq, hkv, d, s, window, iters, card, arch,
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
+        cost,
         flash_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     tname = str(dtype).split(".")[1]
-    esize = torch.finfo(dtype).bits // 8
     q, k, v = flash_inputs(torch, dtype, hq, hkv, d, b=b, s=s)
     got = flash_attention_cuda(q, k, v, causal=True, window=window)
     want = flash_attention_ref(q, k, v, causal=True, window=window)
@@ -696,9 +712,9 @@ def flash_case(torch, dtype, hq, hkv, d, s, window, iters, card, arch,
           f"plain {err} (abs), {rel} (row-relative)")
     del got, want
     b = q.shape[0]
-    # the scored pairs' two products (Q.K and P.V), 2 flops per MAC
-    flops = 4 * b * hq * d * causal_pairs(s, window)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+    # the kernel's own cost formula: the scored pairs' two products, q, k
+    # and v read once, the output written once
+    flops, nbytes = cost(q, k, causal=True, window=window)
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
               "operations": flops / PEAK_FLOPS[tname] * 1e3}
     bound_by = max(bounds, key=bounds.get)
@@ -3051,6 +3067,9 @@ TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5}
 # gradient by about lr (m / sqrt(v) = sign(g)), 100 times TRAIN_TOL's
 # param bound, so an update that is missing or wrong fails it
 TRAIN_VERSUS_OPT = {"lr": 1e-3, "warmup_steps": 0}
+# the op count of a full-width step on the card against its count on meta
+COUNT_TOL = {"bytes": 0.01, "peak": 0.10}
+DRYRUN_JOIN_S = 600  # the longest the summary waits for the dry-run sweep
 
 
 BACKWARD_RANGE = "flash_attention.backward"  # kernels/flash_attention/ops.py
@@ -3100,13 +3119,14 @@ def phase_train_full_width(torch, args, card):
     named = dict(state["params"].named_parameters())
     n_params = sum(p.numel() for p in named.values())
     n_embed = named["embedding.embed"].numel()
-    step_fn = make_train_step(api, TrainConfig(
+    tcfg = TrainConfig(
         opt=OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=100),
-        n_microbatches=TRAIN_MICRO))
+        n_microbatches=TRAIN_MICRO)
+    step_fn = make_train_step(api, tcfg)
     stream = TokenStream(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
                                     seed=args.seed))
     batches = [to_device(stream.batch(i), "cuda")
-               for i in range(TRAIN_STEPS + 1)]
+               for i in range(TRAIN_STEPS + 2)]
     zero_counts()
     step_ms, metrics = [], []
     for i in range(TRAIN_STEPS):
@@ -3136,6 +3156,8 @@ def phase_train_full_width(torch, args, card):
         state, _ = step_fn(state, batches[TRAIN_STEPS])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
+    state, counted = train_count_check(torch, cfg, tcfg, state, step_fn,
+                                       batches[TRAIN_STEPS + 1])
     stats = kernel_stats(torch, prof, wall, ranges=(BACKWARD_RANGE,))
     # the range's span on the device's timeline, from the first kernel
     # launched inside it to the last
@@ -3151,7 +3173,7 @@ def phase_train_full_width(torch, args, card):
     tokens = TRAIN_BATCH * TRAIN_SEQ
     # 6 N T: forward and backward products of every weight but the
     # embedding lookup, without the remat's second forward
-    flops = 6 * (n_params - n_embed) * tokens
+    flops = model_flops(n_params - n_embed, tokens, "train")
     line = {
         "phase": "train_full_width", "arch": SERVE_ARCH, "dtype": cfg.dtype,
         "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
@@ -3179,12 +3201,112 @@ def phase_train_full_width(torch, args, card):
         },
         "attention_backward_ms_each": bwd_ms,
         "attention_backward_step_share": bwd_ms * n_bwd / median,
+        "op_count": counted,
         "card": card,
     }
     emit(line)
     del state, batches
     torch.cuda.empty_cache()
     return line
+
+
+def train_count_check(torch, cfg, tcfg, state, step_fn, batch):
+    """One more timed step on the card under ``utils.opcount``, beside
+    ``launch.dryrun.run_cell``'s count of the same step on the meta device:
+    flops equal, the flash kernel's records equal the step's launches,
+    bytes within COUNT_TOL["bytes"] (the ops whose bytes differ listed),
+    the meta peak within COUNT_TOL["peak"] of ``max_memory_allocated``
+    over the step. Returns (state, the comparison)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.utils.opcount import OpCounter
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = flash_kernel.launches
+    with OpCounter(torch.cuda.memory_allocated()) as counter:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    max_allocated = torch.cuda.max_memory_allocated()
+    launched = flash_kernel.launches - launches
+    card = counter.result()
+    t0 = time.perf_counter()
+    cell = run_cell(SERVE_ARCH, ShapeConfig(
+        "train_full_width", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        kind="train"), "card", microbatches=TRAIN_MICRO, tcfg=tcfg, cfg=cfg)
+    meta_s = time.perf_counter() - t0
+    meta = cell["counts"]
+    bytes_rel = abs(meta["bytes"] - card["bytes"]) / card["bytes"]
+    peak_rel = abs(meta["peak_bytes"] - max_allocated) / max_allocated
+    ops = set(card["bytes_by_op"]) | set(meta["bytes_by_op"])
+    differ = {op: [card["bytes_by_op"].get(op, 0),
+                   meta["bytes_by_op"].get(op, 0)] for op in sorted(ops)
+              if card["bytes_by_op"].get(op) != meta["bytes_by_op"].get(op)}
+    records = [c["kernels"].get("flash_attention", {}).get("calls", 0)
+               for c in (card, meta)]
+    line = {
+        "step_ms": step_ms, "meta_trace_s": meta_s,
+        "flops": [card["flops"], meta["flops"]],
+        "bytes": [card["bytes"], meta["bytes"]], "bytes_rel_err": bytes_rel,
+        "bytes_differ_by_op": differ,
+        "peak_bytes": [max_allocated, meta["peak_bytes"]],
+        "peak_rel_err": peak_rel, "flash_launches": launched,
+        "flash_records": records, "bounds": COUNT_TOL,
+        "roofline": cell["roofline"],
+    }
+    want = TRAIN_MICRO * 2 * cfg.n_layers
+    check(card["flops"] == meta["flops"],
+          f"train_full_width: flops on the card {card['flops']} != meta "
+          f"{meta['flops']}")
+    check(records == [launched, launched] and launched == want,
+          f"train_full_width: flash records {records}, launches {launched}, "
+          f"want {want}")
+    check(bytes_rel <= COUNT_TOL["bytes"],
+          f"train_full_width: bytes card vs meta {bytes_rel}: {differ}")
+    check(peak_rel <= COUNT_TOL["peak"],
+          f"train_full_width: meta peak {meta['peak_bytes']} against "
+          f"max_memory_allocated {max_allocated}")
+    return state, line
+
+
+def compression_versus(torch, g_card, seed):
+    """``sharding.gradient`` on the card's fp32 gradients and on their CPU
+    copies, each side with a CPU generator seeded alike (so the card gets
+    the CPU's noise): ``compress_tree``'s int8 payloads and scales, and
+    ``error_feedback_step``'s gradients and residuals, bit for bit; and
+    ``compressed_all_reduce_mean`` as one participant (no process group)
+    on one leaf, bit for bit."""
+    from repro_torch.sharding import gradient as G
+
+    g_cpu = {k: g.detach().cpu() for k, g in g_card.items()}
+    t0 = time.perf_counter()
+
+    def run(grads):
+        res = G.init_residual(grads)
+        eff = {k: g.float() + res[k] for k, g in grads.items()}
+        payload, scales = G.compress_tree(
+            eff, torch.Generator().manual_seed(seed))
+        restored, residual = G.error_feedback_step(
+            grads, res, torch.Generator().manual_seed(seed))
+        leaf = next(iter(sorted(grads)))
+        mean = G.compressed_all_reduce_mean(
+            grads[leaf], torch.Generator().manual_seed(seed))
+        return {"payload": payload, "scale": scales, "restored": restored,
+                "residual": residual, "mean": {leaf: mean}}
+
+    card, cpu = run(g_card), run(g_cpu)
+    seconds = time.perf_counter() - t0
+    unequal = [f"{part}/{k}" for part in card for k in card[part]
+               if not torch.equal(card[part][k].cpu(), cpu[part][k])]
+    check(not unequal, f"train_card_vs_cpu: gradient compression card != "
+          f"CPU in {unequal[:8]}")
+    return {"leaves": len(g_card), "parts": sorted(card),
+            "bit_equal": True, "seconds": seconds,
+            "int8_saturated": sum(int((q.abs() == 127).sum())
+                                  for q in cpu["payload"].values())}
 
 
 def adamw_step(params, grads):
@@ -3208,7 +3330,7 @@ def train_versus(torch, cfg, batch, seed):
     gradient is near 0 the two sides' rounding can flip an element's sign;
     the gradients are held card = CPU, the update card = CPU on the same
     gradients. Counts set to 0 just before the card's step; returns (line,
-    the card's launches)."""
+    the card's launches, the card's gradients)."""
     from repro_torch.models.registry import get_model, params_class
     from repro_torch.train.train_loop import value_and_grad
 
@@ -3254,7 +3376,7 @@ def train_versus(torch, cfg, batch, seed):
             "grad_max_rel_err": grad_err, "param_max_err": param_err,
             "param_max_move": move, "opt": TRAIN_VERSUS_OPT,
             "leaves": len(g_card), "card_s": card_s, "cpu_s": cpu_s,
-            "flash_launches": launches["flash_attention"]}, launches
+            "flash_launches": launches["flash_attention"]}, launches, g_card
 
 
 def phase_train_card_vs_cpu(torch, args, card):
@@ -3274,7 +3396,14 @@ def phase_train_card_vs_cpu(torch, args, card):
     batch = to_device(TokenStream(DataConfig(
         cfg.vocab, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH, seed=args.seed)).batch(0),
         "cpu")
-    versus, launches = train_versus(torch, cfg, batch, args.seed)
+    versus, launches, g_card = train_versus(torch, cfg, batch, args.seed)
+    # every leaf but the two embedding tables (three quarters of the
+    # elements, the same elementwise arithmetic): the check's CPU side
+    # costs ~30 s with them
+    compression = compression_versus(torch, {
+        k: g for k, g in g_card.items() if not k.startswith("embedding.")},
+        args.seed)
+    del g_card
     check(versus["flash_launches"] == 2 * cfg.n_layers,
           "train_card_vs_cpu: want one flash launch a layer forward and one "
           "in its recompute")
@@ -3282,6 +3411,7 @@ def phase_train_card_vs_cpu(torch, args, card):
             "dtype": "float32", "layers": cfg.n_layers,
             "batch": TRAIN_CPU_BATCH, "seq": TRAIN_CPU_SEQ, **versus,
             "bounds": TRAIN_TOL, "launches": launches,
+            "gradient_compression": compression,
             "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
             "card": card}
     emit(line)
@@ -3312,7 +3442,7 @@ def phase_train_families(torch, args, card):
         cfg = smoke_config(get_config(arch))
         batch = get_model(cfg).make_train_batch(
             shape, torch.Generator().manual_seed(args.seed))
-        versus, launches = train_versus(torch, cfg, batch, args.seed)
+        versus, launches, _ = train_versus(torch, cfg, batch, args.seed)
         want = 2 * cfg.n_layers if cfg.family in ("dense", "moe", "vlm") \
             else 0
         check(versus["flash_launches"] == want,
@@ -3424,6 +3554,96 @@ def run_beside(fn):
                         "running_when_fn_returned": running,
                         "own_process": True,
                         "last_line": lines[-1] if lines else ""}}
+
+
+# the dry-run sweep beside the card phases: every arch x shape on these
+# meshes, in this many worker processes, niced below the card phases'
+# host-bound work (it needs no card)
+DRYRUN_MESHES, DRYRUN_JOBS = ("card", "single", "multi"), 3
+DRYRUN_DIR = pathlib.Path(__file__).resolve().parent / "reports" / \
+    "dryrun_torch"
+
+
+def start_dryrun():
+    """Start ``python -m repro_torch.launch.dryrun --all`` over
+    DRYRUN_MESHES in a process group of its own, writing each cell's record
+    and its log under DRYRUN_DIR. Returns (process, log file, start time
+    on the wall clock, which the records' file times are set against);
+    the process group is killed if the script exits first."""
+    import atexit
+    import signal
+
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    log = open(DRYRUN_DIR / "sweep.log", "w")
+    src = str(pathlib.Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, "-m",
+         "repro_torch.launch.dryrun", "--all", "--force",
+         "--mesh", ",".join(DRYRUN_MESHES), "--jobs", str(DRYRUN_JOBS),
+         "--report-dir", str(DRYRUN_DIR)],
+        env=env, stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, log, time.time()
+
+
+def phase_dryrun(torch, args, card, started):
+    """Join the dry-run sweep (``start_dryrun``) and print one line a cell:
+    arch, shape, mesh, flops, bytes, peak GB, whether it fits the card's
+    80 GB, the dominant term, roofline_fraction and trace_s. Fails on any
+    cell's error, a missing cell, or xlstm-125m's train_4k and prefill_32k
+    cells on the card not counted."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import brief
+    from repro_torch.models.registry import ALL_ARCHS
+
+    proc, log, t0 = started
+    waited = time.perf_counter()
+    rc = proc.wait(timeout=DRYRUN_JOIN_S)
+    waited = time.perf_counter() - waited
+    log.close()
+    # the sweep's own wall time: from its start to its last record
+    sweep_s = max(p.stat().st_mtime for p in DRYRUN_DIR.glob("*")) - t0
+    cells, errors = {}, []
+    for arch in ALL_ARCHS:
+        for shape in SHAPES:
+            for mesh in DRYRUN_MESHES:
+                path = DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json"
+                check(path.exists(), f"dryrun: no record of {path.name}")
+                rec = json.loads(path.read_text())
+                cells[arch, shape, mesh] = rec
+                line = brief(rec)
+                if "error" in rec:
+                    errors.append((arch, shape, mesh))
+                    line["error"] = rec["error"].strip().splitlines()[-1]
+                print(json.dumps({"dryrun": line}), flush=True)
+    check(rc == 0 and not errors, f"dryrun: exit {rc}, cells failed: "
+          f"{errors}; see {DRYRUN_DIR / 'sweep.log'}")
+    for shape in ("train_4k", "prefill_32k"):
+        check("roofline" in cells["xlstm-125m", shape, "card"],
+              f"dryrun: xlstm-125m {shape} on the card not counted")
+    card_cells = [c for (a, s, m), c in cells.items()
+                  if m == "card" and "roofline" in c]
+    line = {"phase": "dryrun", "cells": len(cells),
+            "counted": sum("roofline" in c for c in cells.values()),
+            "skipped": sum(bool(c.get("skipped")) for c in cells.values()),
+            "errors": len(errors), "meshes": DRYRUN_MESHES,
+            "jobs": DRYRUN_JOBS, "sweep_s": sweep_s, "join_wait_s": waited,
+            "trace_s_total": sum(c["trace_s"] for c in card_cells),
+            "trace_s_max": max(c["trace_s"] for c in card_cells),
+            "fits_80gb_card": sum(c["memory"]["fits_hbm"]
+                                  for c in card_cells),
+            "report_dir": str(DRYRUN_DIR), "card": card}
+    emit(line)
+    return line
 
 
 def phase_examples(torch, args, card, beside):
@@ -3709,7 +3929,6 @@ def main() -> None:
     args = ap.parse_args()
     t_start = time.perf_counter()
 
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     import torch
 
     from repro_torch.kernels import _build
@@ -3718,6 +3937,9 @@ def main() -> None:
         fail("no CUDA device: this script measures the port on a GPU")
 
     card = nvidia_smi()
+    # the dry-run needs no card: it runs beside every card phase
+    dryrun = (start_dryrun() if args.phases is None or "dryrun" in
+              args.phases else None)
     build_s = _build.build_all()
     emit({
         "phase": "env", "nvidia_smi": card,
@@ -3775,6 +3997,7 @@ def main() -> None:
     timed("moe_layer", phase_moe_layer, card)
     timed("allocation", phase_allocation, card)
     timed("profile", phase_profile, card)
+    timed("dryrun", phase_dryrun, card, dryrun)
     if args.phases is not None:  # a partial run: no summary, no ok line
         print(nvidia_smi(), flush=True)
         emit({"partial": args.phases, "phase_s": seconds})

@@ -49,8 +49,14 @@ package's fleet steps the reference step by default, because under
 branch is extra work there; here the split step's runs are the fast
 path, so ``fast_path=True`` stays the default.
 
-What the JAX package's fleet does across devices (a mesh, its device
-count, compile caches) has no counterpart on one card.
+Devices: ``devices=`` splits the drives into contiguous slices, one a
+card (``resolve_devices``: None or 1 is ``device`` alone, "auto" every
+visible card, an int that many, clamped to what the host has, or an
+explicit list), runs each slice as a fleet of its own, one after another
+from this thread, and joins the results in drive order. Drives are
+independent lanes, so the results are those of one device. The JAX
+package's compile caches and its padding of ragged sub-batches to the
+mesh have no counterpart: a slice is a fleet of any size.
 """
 
 from __future__ import annotations
@@ -132,9 +138,15 @@ class FleetResult:
     geom: Geometry | None = None  # shared fleet geometry (analytics)
     trace_every: int = 1  # trace stride (RunResult.stride of every drive)
     # per sub-batch: its drives, rounds (write_run launches), interval
-    # batches (rounds that completed §5.1 intervals), host syncs, and
-    # the interval length h
+    # batches (rounds that completed §5.1 intervals), host syncs, the
+    # interval length h, the fleet's device count and (split over several
+    # devices) the index of the slice it ran in
     exec_meta: list[dict] = dataclasses.field(default_factory=list)
+
+    @property
+    def devices_used(self) -> int:
+        """How many devices the fleet was split over."""
+        return max((m["devices"] for m in self.exec_meta), default=1)
 
     def state(self, i: int) -> SimState:
         """Final state of drive i (views into its sub-batch's)."""
@@ -374,6 +386,28 @@ def _streams(sub, geom, n_total, *, sampler, with_trim, device):
     return lbas, ops
 
 
+def resolve_devices(devices=None, device="cuda") -> list[torch.device]:
+    """The devices a fleet is split over, as the JAX package resolves
+    ``simulate_fleet``'s ``devices=`` (repro/core/fleet_exec.py:102):
+    None or 1 is ``device`` alone; "auto" every visible device of its type
+    (every card, or the one CPU); an int (or numeric string) that many,
+    clamped to the visible count and at least 1; a list or tuple names
+    them."""
+    if isinstance(devices, (list, tuple)):
+        if not devices:
+            raise ValueError("devices: an empty list")
+        return [torch.device(d) for d in devices]
+    base = torch.device(device)
+    if devices in (None, 1):
+        return [base]
+    cards = torch.cuda.device_count() if base.type == "cuda" else 0
+    n_avail = max(cards, 1)
+    n = n_avail if devices == "auto" else max(1, min(int(devices), n_avail))
+    if base.type != "cuda":
+        return [base] * n
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def simulate_fleet(
     geom: Geometry,
     specs: list[DriveSpec],
@@ -386,6 +420,7 @@ def simulate_fleet(
     trace_every: int = 1,
     ops_stream: bool | None = None,
     device="cuda",
+    devices=None,
 ) -> FleetResult:
     """Run the drives ``specs`` in lock-step on ``device``.
 
@@ -405,9 +440,21 @@ def simulate_fleet(
     trace_every must divide the event total and every segment between
     phase boundaries; app/mig come back [B, n_total // trace_every].
     Every spec must issue the same number of events.
+
+    devices: see ``resolve_devices``; with more than one, contiguous
+    slices of the drives, one a device (see the module docstring).
     """
     n_total = _check(geom, specs, sampler=sampler, trace_every=trace_every,
                      ops_stream=ops_stream)
+    devs = resolve_devices(devices, device)
+    n_dev = min(len(devs), len(specs))
+    if n_dev > 1:
+        return _sliced(geom, specs, devs[:n_dev], sampler=sampler,
+                       init_p_from_phase=init_p_from_phase,
+                       return_lbas=return_lbas, gc_impl=gc_impl,
+                       fast_path=fast_path, trace_every=trace_every,
+                       ops_stream=ops_stream)
+    device = devs[0]
 
     def key(s: DriveSpec):
         k = _part_key(s)
@@ -444,10 +491,35 @@ def simulate_fleet(
             "interval_batches": simulator.interval_batches - counts[1],
             "host_syncs": simulator.host_syncs - counts[2],
             "h": ctx.h,
+            "devices": 1,
         })
     return FleetResult(
         app=app, mig=mig, specs=list(specs), shards=shards, lbas=lbas_out,
         geom=geom, trace_every=trace_every, exec_meta=exec_meta,
+    )
+
+
+def _sliced(geom, specs, devs, **kw) -> FleetResult:
+    """The fleet as contiguous slices of its drives, one a device, run
+    one after another and joined in drive order."""
+    bounds = np.linspace(0, len(specs), len(devs) + 1).round().astype(int)
+    parts = []
+    for k, dev in enumerate(devs):
+        lo, hi = int(bounds[k]), int(bounds[k + 1])
+        parts.append((lo, simulate_fleet(geom, specs[lo:hi], device=dev,
+                                         **kw)))
+    shards, exec_meta = [], []
+    for k, (lo, part) in enumerate(parts):
+        shards += [([lo + i for i in idx], st) for idx, st in part.shards]
+        exec_meta += [dict(m, slice=k, devices=len(devs))
+                      for m in part.exec_meta]
+    lbas = [p.lbas for _, p in parts]
+    return FleetResult(
+        app=np.concatenate([p.app for _, p in parts]),
+        mig=np.concatenate([p.mig for _, p in parts]),
+        specs=list(specs), shards=shards,
+        lbas=None if lbas[0] is None else np.concatenate(lbas),
+        geom=geom, trace_every=kw["trace_every"], exec_meta=exec_meta,
     )
 
 

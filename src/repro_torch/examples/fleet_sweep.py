@@ -1,6 +1,7 @@
 """Sweep a policy × workload grid as one batched fleet simulation (the
-counterpart of ``examples/fleet_sweep.py``, plus ``--device``; its
-``--devices`` mesh waits for the sharding slice).
+counterpart of ``examples/fleet_sweep.py``, plus ``--device``;
+``--devices`` splits the drives over that many cards, "auto" every one,
+as ``simulate_fleet(devices=)`` does).
 
 Every (manager, workload, seed) combination is a drive of one lock-step
 fleet (``core/fleet.simulate_fleet``, streams drawn on the device), and
@@ -41,6 +42,8 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, default=1)
     ap.add_argument("--lba-pba", type=float, default=0.7)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--devices", default=None,
+                    help='cards to split the drives over: an int or "auto"')
     args = ap.parse_args(argv)
 
     geom = Geometry(n_luns=4, blocks_per_lun=32, pages_per_block=8,
@@ -58,7 +61,8 @@ def main(argv=None):
         for mn, mk in managers
         for wn, wl in workloads
     ]
-    fleet = simulate_fleet(geom, specs, device=args.device)
+    fleet = simulate_fleet(geom, specs, device=args.device,
+                           devices=args.devices)
 
     print(f"{len(specs)} drives × {args.writes} writes "
           f"(geometry: {geom.n_blocks} blocks, LBA/PBA {geom.lba_pba})\n")
@@ -93,7 +97,8 @@ def main(argv=None):
                   seed=11, name=f"single-lru/trim={t}")
         for t in trim_fracs
     ]
-    trim_fleet = simulate_fleet(geom, trim_specs, device=args.device)
+    trim_fleet = simulate_fleet(geom, trim_specs, device=args.device,
+                                devices=args.devices)
     # reserve-adjusted base utilization, as in the Fig.-1 equilibrium test
     ppb = geom.pages_per_block
     usable = geom.pba_pages - 3 * ppb
@@ -128,7 +133,8 @@ def main(argv=None):
         DriveSpec(mcfg, skew, seed=7, name=nm.split()[0])
         for nm, mcfg in points
     ]
-    wear_fleet = simulate_fleet(geom, wear_specs, device=args.device)
+    wear_fleet = simulate_fleet(geom, wear_specs, device=args.device,
+                                devices=args.devices)
     wvar = wear_fleet.wear_variance()
     wimb = wear_fleet.wear_imbalance()
     dwpd = wear_fleet.lifetime_dwpd()

@@ -5,6 +5,7 @@ on the tensor cores, fp32 on the CUDA cores in full fp32."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -35,6 +36,26 @@ def check_args(q, k, v) -> None:
         "flash_attention", q=(q, q.dtype, q.shape),
         k=(k, q.dtype, (b, skv, hkv, d)), v=(v, q.dtype, (b, skv, hkv, d)),
     )
+
+
+def scored_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the kernel scores: query i sees keys j < skv
+    with j <= i when causal (top-left aligned) and j > i - window when
+    window > 0."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(i - int(window) + 1, 0) if window > 0 else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q, k, causal: bool = True, window: int = 0) -> tuple[int, int]:
+    """(flops, bytes) of one call on q [B, Sq, Hq, D] and k [B, Skv, Hkv,
+    D]: the scored pairs' two products (Q·K and P·V), 2 flops a
+    multiply-add; q, k and v read once and the output written once."""
+    b, sq, hq, d = q.shape
+    flops = 4 * b * hq * d * scored_pairs(sq, k.shape[1], causal, window)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return flops, nbytes
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,

@@ -1,7 +1,8 @@
 """Public op: flash attention forward, dispatched on the tensors' device.
 
 CUDA tensors go to the hand-written kernel, CPU tensors to its plain
-version; there is no fallback from one to the other.
+version; there is no fallback from one to the other. Meta tensors take
+the kernel's route: an empty output, and the kernel's cost recorded.
 
 Under autograd (grad mode on and an input that requires a gradient) the
 call is a ``torch.autograd.Function``: the forward is the same dispatch,
@@ -16,13 +17,24 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import check_args, flash_attention_cuda
+from repro_torch.utils import opcount
+
+from .kernel import check_args, cost, flash_attention_cuda
 from .ref import flash_attention_ref
 
 
 def _forward(q, k, v, causal: bool, window: int):
+    """The card's kernel, or its plain version on the CPU. A meta tensor
+    takes the card's route, which the kernel's cost formula records in
+    an op count (``utils.opcount``) as it does on the card."""
+    if q.is_cuda or q.is_meta:
+        opcount.record_kernel("flash_attention",
+                              *cost(q, k, causal, window))
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    if q.is_meta:
+        check_args(q, k, v)
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         check_args(q, k, v)
         return flash_attention_ref(q, k, v, causal=causal, window=window)

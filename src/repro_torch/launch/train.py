@@ -7,8 +7,13 @@ runner (the counterpart of ``repro.launch.train``, plus ``--device``).
 
 ``--smoke`` takes the arch's reduced config; without it the full config
 trains at full width in its dtype. Batches are the token stream's, as in
-the JAX launcher (no stub-frontend inputs). One device: there is no
-``--mesh``.
+the JAX launcher (no stub-frontend inputs).
+
+``--mesh none`` (the default) trains on one device. ``single`` and
+``multi`` resolve the production mesh (256 or 512 devices) and the
+state's placement on it (``sharding.auto.auto_shardings``); like
+``jax.make_mesh`` on a host with fewer devices, they then raise a
+ValueError naming the devices the mesh needs and the cards the host has.
 """
 
 from __future__ import annotations
@@ -20,20 +25,39 @@ import time
 
 import torch
 
+from repro_torch.core.fleet import resolve_devices
 from repro_torch.data.pipeline import DataConfig, TokenStream, to_device
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.registry import (
     ALL_ARCHS,
     get_config,
     get_model,
     smoke_config,
 )
+from repro_torch.sharding.auto import auto_shardings
 from repro_torch.train.fault_tolerance import RunnerConfig, TrainRunner
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_loop import (
     TrainConfig,
     init_state,
     make_train_step,
+    train_state_specs,
 )
+
+
+def bind_mesh(api, mesh_kind: str, device) -> dict:
+    """The production mesh for ``mesh_kind`` and the train state's
+    placement on it; raises ValueError when the host has fewer devices
+    than the mesh needs. Returns the placement {name: NamedSharding}."""
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+    shardings = auto_shardings(train_state_specs(api), mesh)
+    have = len(resolve_devices("auto", device))
+    if mesh.size > have:
+        raise ValueError(
+            f"--mesh {mesh_kind}: the mesh {mesh.shape} needs {mesh.size} "
+            f"devices; this host has {have} {torch.device(device).type} "
+            "device(s)")
+    return shardings
 
 
 def main(argv=None):
@@ -49,6 +73,8 @@ def main(argv=None):
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--mesh", choices=("none", "single", "multi"),
+                    default="none")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -62,6 +88,8 @@ def main(argv=None):
         n_microbatches=args.microbatches,
     )
     stream = TokenStream(DataConfig(cfg.vocab, args.seq, args.batch))
+    if args.mesh != "none":
+        bind_mesh(api, args.mesh, args.device)
     state = init_state(api, torch.Generator(device=args.device).manual_seed(0))
     step_fn = make_train_step(api, tcfg)
     logged = {"last": time.perf_counter()}

@@ -7,8 +7,9 @@ counterpart of ``repro.models.attention``).
   score matrix. On a CUDA tensor with a static window (``window_static >=
   0``) and more than one query it calls the hand-written flash kernel
   (``kernels/flash_attention``), as the JAX package routes to its Pallas
-  kernel (repro/models/attention.py:114). The tensors' device decides: no
-  global switch.
+  kernel (repro/models/attention.py:114); a meta tensor takes the same
+  route, so an op count on meta sees what the card runs. The tensors'
+  device decides: no global switch.
 * GQA folds the query heads into [kv_heads, group]; K/V are never repeated.
 * Windows are plain integers per layer (0 = full attention).
 """
@@ -58,12 +59,12 @@ def chunked_attention(q, k, v, window, *, causal: bool = True,
     """Online-softmax attention over KV chunks, fp32 accumulators.
 
     q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D]. ``window_static >= 0``
-    certifies that ``window`` equals it; with it, a CUDA tensor and Sq > 1
-    the flash kernel runs instead."""
+    certifies that ``window`` equals it; with it, a CUDA (or meta) tensor
+    and Sq > 1 the flash kernel runs instead."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    if window_static >= 0 and sq > 1 and q.is_cuda:
+    if window_static >= 0 and sq > 1 and (q.is_cuda or q.is_meta):
         from repro_torch.kernels.flash_attention.ops import flash_attention
 
         return flash_attention(q, k, v, causal=causal, window=window_static)

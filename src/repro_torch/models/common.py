@@ -17,9 +17,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._pytree import tree_leaves
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.utils import opcount
 
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -35,6 +37,32 @@ def _needs_grad(a) -> bool:
     if isinstance(a, nn.Module):
         return any(p.requires_grad for p in a.parameters())
     return isinstance(a, torch.Tensor) and a.requires_grad
+
+
+def scan(body, carry, n: int):
+    """(carry, [y_0, ..., y_{n-1}]) of ``carry, y_i = body(carry, i)`` for
+    i in range(n): a recurrence's loop (``lax.scan``'s counterpart).
+
+    On CUDA and the CPU it loops. Under an op counter
+    (``utils.opcount``) on the meta device it runs step 0, then step 1
+    once with its counts, and its backward's, multiplied by n - 1, as
+    ``repro.utils.hlo`` multiplies a ``while`` body by its trip count:
+    step 1 stands for every later step (its carry comes out of a step, as
+    theirs does, so its backward is theirs), and every later y_i is its
+    y."""
+    if n > 2 and opcount.active() is not None and any(
+            t.is_meta for t in tree_leaves(carry)
+            if isinstance(t, torch.Tensor)):
+        carry, y0 = body(carry, 0)
+        with opcount.repeat(n - 1) as loop:
+            carry, y = body(carry, 1)
+            loop.finish(carry, y)
+        return carry, [y0] + [y] * (n - 1)
+    ys = []
+    for i in range(n):
+        carry, y = body(carry, i)
+        ys.append(y)
+    return carry, ys
 
 
 def remat_call(fn, *args):

@@ -138,6 +138,32 @@ class ModelApi:
                                      getattr(torch, cfg.dtype))
         return specs
 
+    def prefill_specs(self, shape: ShapeConfig) -> dict:
+        """{name: (shape, dtype)} of prefill's inputs for ``shape``: the
+        text tokens, and a vision model's patch embeddings
+        (``extra_embeds``) or an audio model's frames [B, S', d] in the
+        model's dtype, as in the JAX package."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        s_front, s_text = _seq_split(cfg, s)
+        specs = {"tokens": ((b, s_text), torch.int32)}
+        if cfg.frontend == "vision_patches":
+            specs["extra_embeds"] = ((b, s_front, cfg.d_model),
+                                     getattr(torch, cfg.dtype))
+        if cfg.frontend == "audio_frames":
+            specs["frames"] = ((b, s_front, cfg.d_model),
+                               getattr(torch, cfg.dtype))
+        return specs
+
+    def decode_specs(self, shape: ShapeConfig) -> dict:
+        """One decode step against a ``seq_len`` cache: {"cache": the
+        cache on the meta device (its tensors carry shape and dtype, and
+        hold nothing), "tokens", "pos": ((B,), int32)}."""
+        b = shape.global_batch
+        return {"cache": self.init_cache(b, shape.seq_len, device="meta"),
+                "tokens": ((b,), torch.int32),
+                "pos": ((b,), torch.int32)}
+
     def make_train_batch(self, shape: ShapeConfig,
                          generator: torch.Generator) -> dict:
         """A random batch of ``train_batch_specs(shape)`` on the

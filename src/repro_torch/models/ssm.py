@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import _param, dense_init
+from repro_torch.models.common import _param, dense_init, scan
 
 F32 = torch.float32
 
@@ -133,10 +133,12 @@ def _mamba_scan_chunked(u, dt, bmat, cmat, a_log, h0, chunk: int):
     decay = torch.exp(dtc[..., None] * a)  # [B, nc, c, D, N]
     inp = (dtc * uc)[..., None] * bc[:, :, :, None, :]
     acc_a, acc_b = _prefix_scan(decay, inp, dim=2)
-    h_in = [h0]  # the state entering each chunk
-    for j in range(nc - 1):
-        h_in.append(acc_a[:, j, -1] * h_in[-1] + acc_b[:, j, -1])
-    h_all = acc_a * torch.stack(h_in, 1)[:, :, None] + acc_b
+    def carry_on(h, j):  # the state entering chunk j + 1
+        h = acc_a[:, j, -1] * h + acc_b[:, j, -1]
+        return h, h
+
+    _, h_in = scan(carry_on, h0, nc - 1)
+    h_all = acc_a * torch.stack([h0, *h_in], 1)[:, :, None] + acc_b
     y = torch.einsum("bjcdn,bjcn->bjcd", h_all, cc)
     # a copy: a view of h_all would keep all of it alive in the caller's cache
     return y.reshape(b, nc * chunk, d)[:, :s], h_all[:, -1, -1].clone()
@@ -241,12 +243,12 @@ def mlstm_sequential(cell: MLSTMCell, x):
     [B, S, H·Dh] (fp32)."""
     q, k, v, i_raw, log_f = _mlstm_qkvif(cell, x)
     b, s, h, dh = q.shape
-    state = mlstm_init_state_raw(b, h, dh, x.device)
-    ys = []
-    for t in range(s):
+    def step(state, t):
         y, state = _mlstm_step(state, q[:, t], k[:, t], v[:, t],
                                i_raw[:, t], log_f[:, t])
-        ys.append(y)
+        return state, y
+
+    _, ys = scan(step, mlstm_init_state_raw(b, h, dh, x.device), s)
     return torch.stack(ys, 1).reshape(b, s, h * dh)
 
 
@@ -302,11 +304,12 @@ def mlstm_chunked(cell: MLSTMCell, x, *, chunk: int = 128, state=None):
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         i_raw, log_f = (F.pad(t, (0, 0, 0, pad)) for t in (i_raw, log_f))
-    ys = []
-    for lo in range(0, s + pad, chunk):
-        state, y = _mlstm_chunk(state, tuple(
+    def step(state, j):
+        lo = j * chunk
+        return _mlstm_chunk(state, tuple(
             t[:, lo:lo + chunk] for t in (q, k, v, i_raw, log_f)))
-        ys.append(y)
+
+    state, ys = scan(step, state, (s + pad) // chunk)
     return torch.cat(ys, 1)[:, :s].reshape(b, s, h * dh), state
 
 
@@ -389,10 +392,11 @@ def slstm_apply(cell: SLSTMCell, x, *, state=None):
     x32 = x.float()
     proj = {g: torch.einsum("bsd,dhk->bshk", x32, getattr(cell, "w" + g))
             for g in GATES}
-    hs = []
-    for t in range(s):
+    def step(state, t):
         state = _slstm_step(cell, state, {g: p[:, t] for g, p in proj.items()})
-        hs.append(state["h"])
+        return state, state["h"]
+
+    state, hs = scan(step, state, s)
     y = torch.stack(hs, 1).reshape(b, s, h_ * dh)
     return y.to(x.dtype) @ cell.out_proj, state
 

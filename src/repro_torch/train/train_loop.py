@@ -51,6 +51,15 @@ def state_from_params(params: torch.nn.Module) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=p0.device)}
 
 
+def train_state_specs(api: ModelApi) -> dict:
+    """The train state on the meta device: the params (built empty, in
+    their dtypes), AdamW's fp32 m, v and master, its count, and the step;
+    shapes and dtypes with nothing behind them, for the dry-run."""
+    from repro_torch.models.registry import params_class
+
+    return state_from_params(params_class(api.cfg)(api.cfg, "meta"))
+
+
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
     b = next(iter(batch.values())).shape[0]
     if b % n:
