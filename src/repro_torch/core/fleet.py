@@ -94,6 +94,7 @@ from repro_torch.core.workloads import (
     phase_param_arrays,
     sample_phases_device,
 )
+from repro_torch.utils.spans import span
 
 # ManagerConfig fields that must agree fleet-wide: the paper's constants,
 # which a sub-batch's context holds once. interval_frac and ewma_a are not
@@ -444,59 +445,65 @@ def simulate_fleet(
     devices: see ``resolve_devices``; with more than one, contiguous
     slices of the drives, one a device (see the module docstring).
     """
-    n_total = _check(geom, specs, sampler=sampler, trace_every=trace_every,
-                     ops_stream=ops_stream)
-    devs = resolve_devices(devices, device)
-    n_dev = min(len(devs), len(specs))
-    if n_dev > 1:
-        return _sliced(geom, specs, devs[:n_dev], sampler=sampler,
-                       init_p_from_phase=init_p_from_phase,
-                       return_lbas=return_lbas, gc_impl=gc_impl,
-                       fast_path=fast_path, trace_every=trace_every,
-                       ops_stream=ops_stream)
-    device = devs[0]
+    with span("fleet.simulate"):
+        n_total = _check(geom, specs, sampler=sampler,
+                         trace_every=trace_every, ops_stream=ops_stream)
+        devs = resolve_devices(devices, device)
+        n_dev = min(len(devs), len(specs))
+        if n_dev > 1:
+            return _sliced(geom, specs, devs[:n_dev], sampler=sampler,
+                           init_p_from_phase=init_p_from_phase,
+                           return_lbas=return_lbas, gc_impl=gc_impl,
+                           fast_path=fast_path, trace_every=trace_every,
+                           ops_stream=ops_stream)
+        device = devs[0]
 
-    def key(s: DriveSpec):
-        k = _part_key(s)
-        if ops_stream:  # every drive on the op-stream engine
-            k = k[:-1] + (True,)
-        return k + (_interval_len(geom, s.mcfg),)
+        def key(s: DriveSpec):
+            k = _part_key(s)
+            if ops_stream:  # every drive on the op-stream engine
+                k = k[:-1] + (True,)
+            return k + (_interval_len(geom, s.mcfg),)
 
-    n_trace = n_total // trace_every
-    app = np.zeros((len(specs), n_trace), np.int32)
-    mig = np.zeros((len(specs), n_trace), np.int32)
-    lbas_out = np.zeros((len(specs), n_total), np.int32) if return_lbas \
-        else None
-    shards, exec_meta = [], []
-    for part in sorted({key(s) for s in specs}):
-        idx = [i for i, s in enumerate(specs) if key(s) == part]
-        sub = [specs[i] for i in idx]
-        with_trim = part[4]
-        st, ctx, policy, rates = _build(geom, sub, init_p_from_phase,
-                                        trace_every, with_trim, device)
-        ctx = dataclasses.replace(ctx, gc_impl=gc_impl, fast_path=fast_path)
-        lbas, ops = _streams(sub, geom, n_total, sampler=sampler,
-                             with_trim=with_trim, device=device)
-        if return_lbas:
-            lbas_out[idx] = lbas.cpu().numpy()
-        counts = (simulator.rounds, simulator.interval_batches,
-                  simulator.host_syncs)
-        sub_app, sub_mig = _run_segments(ctx, st, lbas, ops, policy, rates,
-                                         sub, trace_every)
-        app[idx], mig[idx] = sub_app, sub_mig
-        shards.append((idx, st))
-        exec_meta.append({
-            "drives": len(sub),
-            "rounds": simulator.rounds - counts[0],
-            "interval_batches": simulator.interval_batches - counts[1],
-            "host_syncs": simulator.host_syncs - counts[2],
-            "h": ctx.h,
-            "devices": 1,
-        })
-    return FleetResult(
-        app=app, mig=mig, specs=list(specs), shards=shards, lbas=lbas_out,
-        geom=geom, trace_every=trace_every, exec_meta=exec_meta,
-    )
+        n_trace = n_total // trace_every
+        app = np.zeros((len(specs), n_trace), np.int32)
+        mig = np.zeros((len(specs), n_trace), np.int32)
+        lbas_out = (np.zeros((len(specs), n_total), np.int32)
+                    if return_lbas else None)
+        shards, exec_meta = [], []
+        for part in sorted({key(s) for s in specs}):
+            idx = [i for i, s in enumerate(specs) if key(s) == part]
+            sub = [specs[i] for i in idx]
+            with_trim = part[4]
+            with span("fleet.build"):
+                st, ctx, policy, rates = _build(geom, sub, init_p_from_phase,
+                                                trace_every, with_trim, device)
+            ctx = dataclasses.replace(ctx, gc_impl=gc_impl,
+                                      fast_path=fast_path)
+            with span("fleet.streams"):
+                lbas, ops = _streams(sub, geom, n_total, sampler=sampler,
+                                     with_trim=with_trim, device=device)
+            if return_lbas:
+                with span("fleet.readback"):
+                    lbas_out[idx] = lbas.cpu().numpy()
+            counts = (simulator.rounds, simulator.interval_batches,
+                      simulator.host_syncs)
+            sub_app, sub_mig = _run_segments(ctx, st, lbas, ops, policy,
+                                             rates, sub, trace_every)
+            app[idx], mig[idx] = sub_app, sub_mig
+            shards.append((idx, st))
+            exec_meta.append({
+                "drives": len(sub),
+                "rounds": simulator.rounds - counts[0],
+                "interval_batches": simulator.interval_batches - counts[1],
+                "host_syncs": simulator.host_syncs - counts[2],
+                "h": ctx.h,
+                "devices": 1,
+            })
+        return FleetResult(
+            app=app, mig=mig, specs=list(specs), shards=shards,
+            lbas=lbas_out, geom=geom, trace_every=trace_every,
+            exec_meta=exec_meta,
+        )
 
 
 def _sliced(geom, specs, devs, **kw) -> FleetResult:
@@ -594,8 +601,9 @@ def _run_segments(ctx, st, lbas, ops, policy, rates, sub, trace_every):
         seg_app, seg_mig = simulator.scan_writes(
             ctx, st, lbas[:, a:b].contiguous(), w,
             {**policy, "page_rate": page_rate}, seg_ops)
-        app[:, a // trace_every: b // trace_every] = seg_app.cpu().numpy()
-        mig[:, a // trace_every: b // trace_every] = seg_mig.cpu().numpy()
+        with span("fleet.readback"):
+            app[:, a // trace_every: b // trace_every] = seg_app.cpu().numpy()
+            mig[:, a // trace_every: b // trace_every] = seg_mig.cpu().numpy()
         w = w + (b - a if ops is None
                  else (seg_ops != simulator.OP_TRIM).sum(1))
     return app, mig

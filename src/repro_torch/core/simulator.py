@@ -117,6 +117,7 @@ from repro_torch.kernels.gc_one.ref import FAULT_POLICY, erase_fault_retire
 from repro_torch.kernels.write_path.ops import apply_trim_
 from repro_torch.kernels.write_run.kernel import STOP_WHY
 from repro_torch.kernels.write_run.ops import write_run_
+from repro_torch.utils.spans import span
 
 INT_MAX = 2**31 - 1
 # the emergency valve's fixed weight point: pure greedy reclaim
@@ -135,6 +136,8 @@ run_stops = dict.fromkeys(STOP_WHY[1:], 0)
 # completed §5.1 intervals, since the counts were last set to 0
 rounds = 0
 interval_batches = 0
+# under a torch profiler, each round, heavy tail, GC, demoting drain,
+# interval and read is also a span (repro_torch.utils.spans.LAYERS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -375,7 +378,8 @@ def _read(t: torch.Tensor) -> np.ndarray:
     counted in :data:`host_syncs`."""
     global host_syncs
     host_syncs += 1
-    return t.cpu().numpy()
+    with span("host.sync"):
+        return t.cpu().numpy()
 
 
 def _on(sel: np.ndarray, pred: torch.Tensor):
@@ -908,6 +912,9 @@ def _erase_victims(st: SimState, victim, g, on=None) -> None:
     st.erase_sq_total.add_((2 * e_old + 1) * one)
 
 
+_GC_SPANS = {m: f"gc.{m}" for m in ("gc", "valve", "movement")}
+
+
 def _gc_one(ctx: SimContext, st: SimState, policy, mode: str,
             g=None, on=None) -> None:
     """One GC (§5.4) for each selected drive, in one ``gc_one_`` launch:
@@ -921,29 +928,34 @@ def _gc_one(ctx: SimContext, st: SimState, policy, mode: str,
     drain follows after one read of the D decisions: the reference drain
     for every deciding drive at once, or a demoting bulk drain drive by
     drive; then, with faults, the hook as device ops."""
-    gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
-    out = torch.empty((st.n_drives, 3), dtype=torch.int64, device=st.device)
-    drain = ctx.gc_impl == "bulk" and ctx.mcfg.td_mode == "static"
-    faults = ({k: policy[k] for k in FAULT_POLICY} if ctx.with_faults
-              else None)
-    retries = ctx.mcfg.erase_max_retries
-    gc_one_(st.drive_axis, gc_w, None if g is None else g.long(), out, on,
-            faults if drain else None, mode=mode, td_mode=ctx.mcfg.td_mode,
-            drain=drain, gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks,
-            erase_max_retries=retries)
-    if drain:
-        return
-    do = out[:, 2] != 0
-    sel = _read(do)
-    if ctx.gc_impl == "reference" and sel.any():
-        _gc_drain_reference(ctx, st, out[:, 0], out[:, 1], policy,
-                            _on(sel, do))
-    for d in np.flatnonzero(sel).tolist():
-        drive, pol = st.drive(d), drive_policy(policy, d)
-        if ctx.gc_impl == "bulk":
-            _gc_drain_bulk(ctx, drive, out[d, 0], out[d, 1], pol)
-        if faults is not None:
-            erase_fault_retire(drive, out[d, 0], out[d, 1], pol, retries)
+    with span(_GC_SPANS[mode]):
+        gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
+        out = torch.empty((st.n_drives, 3), dtype=torch.int64,
+                          device=st.device)
+        drain = ctx.gc_impl == "bulk" and ctx.mcfg.td_mode == "static"
+        faults = ({k: policy[k] for k in FAULT_POLICY} if ctx.with_faults
+                  else None)
+        retries = ctx.mcfg.erase_max_retries
+        gc_one_(st.drive_axis, gc_w, None if g is None else g.long(), out,
+                on, faults if drain else None, mode=mode,
+                td_mode=ctx.mcfg.td_mode, drain=drain,
+                gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks,
+                erase_max_retries=retries)
+        if drain:
+            return
+        do = out[:, 2] != 0
+        sel = _read(do)
+        if ctx.gc_impl == "reference" and sel.any():
+            _gc_drain_reference(ctx, st, out[:, 0], out[:, 1], policy,
+                                _on(sel, do))
+        for d in np.flatnonzero(sel).tolist():
+            drive, pol = st.drive(d), drive_policy(policy, d)
+            if ctx.gc_impl == "bulk":
+                with span("gc.demote_drain"):
+                    _gc_drain_bulk(ctx, drive, out[d, 0], out[d, 1], pol)
+            if faults is not None:
+                erase_fault_retire(drive, out[d, 0], out[d, 1], pol,
+                                   retries)
 
 
 # ---------------------------------------------------------------------------
@@ -1124,23 +1136,25 @@ def _interval_update(ctx: SimContext, st: SimState, policy, on=None) -> None:
     """§5.1 for the selected drives: the EWMA of each group's update
     frequency (each drive's own constant), the interval clock and
     cooldown, §5.2 groups and the §5.5 allocation."""
-    a = policy["ewma_a"].unsqueeze(1)
-    u = st.grp_writes.to(torch.float32) / policy["h"].to(
-        torch.float32).unsqueeze(1)
-    grp_p = torch.where(st.grp_active, _fma32(st.grp_p, 1.0 - a, a * u), 0.0)
-    if on is None:
-        st.grp_p.copy_(grp_p)
-        st.grp_writes.zero_()
-        st.interval.add_(1)
-        st.cooldown.copy_((st.cooldown - 1).clamp(min=0))
-    else:
-        st.grp_p.copy_(torch.where(on[:, None], grp_p, st.grp_p))
-        st.grp_writes.masked_fill_(on[:, None], 0)
-        st.interval.add_(on.to(torch.int32))
-        st.cooldown.sub_(((st.cooldown > 0) & on).to(torch.int32))
-    if ctx.mcfg.dynamic_groups:
-        _maybe_create_or_merge(ctx, st, policy, on)
-    _recompute_alloc(ctx, st, policy, on)
+    with span("sim.interval"):
+        a = policy["ewma_a"].unsqueeze(1)
+        u = st.grp_writes.to(torch.float32) / policy["h"].to(
+            torch.float32).unsqueeze(1)
+        grp_p = torch.where(st.grp_active,
+                            _fma32(st.grp_p, 1.0 - a, a * u), 0.0)
+        if on is None:
+            st.grp_p.copy_(grp_p)
+            st.grp_writes.zero_()
+            st.interval.add_(1)
+            st.cooldown.copy_((st.cooldown - 1).clamp(min=0))
+        else:
+            st.grp_p.copy_(torch.where(on[:, None], grp_p, st.grp_p))
+            st.grp_writes.masked_fill_(on[:, None], 0)
+            st.interval.add_(on.to(torch.int32))
+            st.cooldown.sub_(((st.cooldown > 0) & on).to(torch.int32))
+        if ctx.mcfg.dynamic_groups:
+            _maybe_create_or_merge(ctx, st, policy, on)
+        _recompute_alloc(ctx, st, policy, on)
 
 
 # ---------------------------------------------------------------------------
@@ -1203,15 +1217,17 @@ def _split_write(ctx: SimContext, st: SimState, lba, interval: bool, policy,
     when ``interval``). A write that stopped a run for a bloom rotation
     alone passes every heavy predicate, and the tail lands it as the run
     would have, with the rotation."""
-    g, old_pm = _invalidate_counts(ctx, st, lba, on)
-    if ctx.with_trim:
-        g = _resolve_group(st, g, old_pm >= 0, lba, policy["page_group0"])
-    if ctx.mcfg.td_mode != "static":
-        old_g = g
-        g = _target_group_app(ctx, st, lba, old_g, policy, on)
-        g = torch.where(_gat(st.grp_active, g), g, old_g)
-    _clear_valid(ctx, st, old_pm)
-    _step_tail(ctx, st, lba, interval, g, policy, on)
+    with span("sim.heavy_tail"):
+        g, old_pm = _invalidate_counts(ctx, st, lba, on)
+        if ctx.with_trim:
+            g = _resolve_group(st, g, old_pm >= 0, lba,
+                               policy["page_group0"])
+        if ctx.mcfg.td_mode != "static":
+            old_g = g
+            g = _target_group_app(ctx, st, lba, old_g, policy, on)
+            g = torch.where(_gat(st.grp_active, g), g, old_g)
+        _clear_valid(ctx, st, old_pm)
+        _step_tail(ctx, st, lba, interval, g, policy, on)
 
 
 def _reference_write(ctx: SimContext, st: SimState, lba, interval, policy,
@@ -1346,49 +1362,50 @@ def scan_writes(ctx: SimContext, st: SimState, lbas: torch.Tensor,
     j = np.zeros(n_drives, np.int64)
     writes_total = writes_before[:, n]
     while True:
-        write_run_(lbas, ops_dev, start, stop, st.drive_axis, run_policy,
-                   app, mig, **mode)
-        rounds += 1
-        writes_j = writes_before[rows, j]
-        if (writes_j == writes_total).all():
-            break  # TRIMs alone: every run went to its end
-        s, w_s, why = _read(stop).T
-        w += writes_before[rows, s] - writes_j
-        if (w_s != w).any():
-            raise RuntimeError(f"write clock: device {w_s}, host {w}")
-        heavy = s < n
-        if not heavy.any():
-            break
-        at_boundary = heavy & ((w + 1) % h == 0)
-        interval = bool((at_boundary == heavy).all())
-        act = at_boundary if interval else heavy ^ at_boundary
-        interval_batches += interval
-        for k in why[act].tolist():
-            run_stops[STOP_WHY[k]] += 1
-        if act.all():
-            on = None
-        else:  # the same mask, made on the device from the stops
-            on = stop[:, 0] < n
-            at_dev = (stop[:, 1] + 1) % h == 0
-            on = on & (at_dev if interval else ~at_dev)
-        at = stop[:, 0]
-        lba = lbas.gather(1, at.clamp(max=n - 1)[:, None])[:, 0]
-        _split_write(ctx, st, lba, interval, policy, on)
-        # the stopped events' trace entries, where (s + 1) % e == 0 (their
-        # column is then s // e)
-        traced = act & ((s + 1) % e == 0)
-        if traced.any():
-            col = at if e == 1 else torch.div(at, e, rounding_mode="floor")
-            m = None
-            if not traced.all():
-                col = col.clamp(max=n // e - 1)
-                m = _and((at + 1) % e == 0, on)
-            _sca(app, col, st.n_app, m)
-            _sca(mig, col, st.n_mig, m)
-        j = s + act
-        w += act
-        # (s + 1, w + 1) where the drive acted
-        torch.add(stop[:, :2], 1 if on is None else on[:, None], out=start)
+        with span("sim.round"):
+            write_run_(lbas, ops_dev, start, stop, st.drive_axis, run_policy,
+                       app, mig, **mode)
+            rounds += 1
+            writes_j = writes_before[rows, j]
+            if (writes_j == writes_total).all():
+                break  # TRIMs alone: every run went to its end
+            s, w_s, why = _read(stop).T
+            w += writes_before[rows, s] - writes_j
+            if (w_s != w).any():
+                raise RuntimeError(f"write clock: device {w_s}, host {w}")
+            heavy = s < n
+            if not heavy.any():
+                break
+            at_boundary = heavy & ((w + 1) % h == 0)
+            interval = bool((at_boundary == heavy).all())
+            act = at_boundary if interval else heavy ^ at_boundary
+            interval_batches += interval
+            for k in why[act].tolist():
+                run_stops[STOP_WHY[k]] += 1
+            if act.all():
+                on = None
+            else:  # the same mask, made on the device from the stops
+                on = stop[:, 0] < n
+                at_dev = (stop[:, 1] + 1) % h == 0
+                on = on & (at_dev if interval else ~at_dev)
+            at = stop[:, 0]
+            lba = lbas.gather(1, at.clamp(max=n - 1)[:, None])[:, 0]
+            _split_write(ctx, st, lba, interval, policy, on)
+            # the stopped events' trace entries, where (s + 1) % e == 0 (their
+            # column is then s // e)
+            traced = act & ((s + 1) % e == 0)
+            if traced.any():
+                col = at if e == 1 else torch.div(at, e, rounding_mode="floor")
+                m = None
+                if not traced.all():
+                    col = col.clamp(max=n // e - 1)
+                    m = _and((at + 1) % e == 0, on)
+                _sca(app, col, st.n_app, m)
+                _sca(mig, col, st.n_mig, m)
+            j = s + act
+            w += act
+            # (s + 1, w + 1) where the drive acted
+            torch.add(stop[:, :2], 1 if on is None else on[:, None], out=start)
     return app, mig
 
 
