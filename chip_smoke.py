@@ -75,9 +75,10 @@ Phases, one JSON line each; any failed check exits non-zero:
               §5.6 demotion, §5.2 groups) on the tpcc_churn op stream, card
               then CPU, counts set to 0 just before the card run: traces and
               integer state must agree, TRIMs must land and nothing drop,
-              every kernel must have been launched, compact_slots once a
-              (demoting) drain, and at the default depth and seed the host
-              syncs must be 5,367;
+              write_run and gc_one must have been launched, every gc_one
+              launch with the demoting drain and none through
+              compact_slots, and at the default depth and seed the host
+              syncs must be 3,250;
   full_width_endurance  the same drive under wolf_endurance with a 5%
               erase failure floor, no retry and 32 spares (ENDURANCE) on
               full_width's stream, card then CPU, counts set to 0 just
@@ -99,9 +100,9 @@ Phases, one JSON line each; any failed check exits non-zero:
               §5.2, TRIM op streams; the fdp and both bloom sub-batches of
               several drives, so their masked tails run; two faulty fdp
               drives and a faulty bloom drive, so the fault hook after the
-              demoting drain runs) at --fleet-mix-events on the card and
-              the CPU (in a process of its own, beside the card's run),
-              identical;
+              demoting drain runs in gc_one) at --fleet-mix-events on the
+              card and the CPU (in a process of its own, beside the card's
+              run), identical;
   fleet_endurance  64 drives of full_width_endurance's configuration, fault
               seed d and stream seed --seed + d, in lock-step, counts set
               to 0 just before: drive-writes/s, rounds, each drive's time
@@ -1687,6 +1688,7 @@ def zero_counts() -> None:
     wp_kernel.launches = wp_kernel.trim_launches = wr_kernel.launches = 0
     gc_kernel.launches = gc_kernel.kv_launches = 0
     gc_kernel.kv_device_launches = gc_one_kernel.launches = 0
+    gc_one_kernel.demote_launches = 0
     paged_kernel.launches = flash_kernel.launches = 0
     simulator.host_syncs = simulator.rounds = simulator.interval_batches = 0
     simulator.run_stops.update(dict.fromkeys(simulator.run_stops, 0))
@@ -1705,6 +1707,8 @@ def read_launches() -> dict:
         "apply_write": wp_kernel.launches,
         "apply_trim": wp_kernel.trim_launches,
         "gc_one": gc_one_kernel.launches,
+        # gc_one launches that carried the demoting drain
+        "gc_one_demote": gc_one_kernel.demote_launches,
         "compact_slots": gc_kernel.launches,
         "gc_compact": gc_kernel.kv_launches,
         # gc_compact's device launches: one a call, two with hazard rows
@@ -1785,9 +1789,10 @@ def phase_full_width(torch, args, card):
     return line
 
 
-# host syncs of the churn path at (seed, events): the count before the GC
-# kernel, which the demoting drains' reads keep
-CHURN_SYNCS = {(0, 50_000): 5367}
+# host syncs of the churn path at (seed, events): the rounds' and the heavy
+# tail's reads (every GC, demoting ones too, is drained in its gc_one
+# launch, with no read)
+CHURN_SYNCS = {(0, 50_000): 3250}
 
 
 def phase_full_width_churn(torch, args, card):
@@ -1810,17 +1815,18 @@ def phase_full_width_churn(torch, args, card):
     launches = read_launches()
     syncs = simulator.host_syncs
     stops = dict(simulator.run_stops)
-    for name in ("write_run", "gc_one", "compact_slots"):
+    for name in ("write_run", "gc_one"):
         check(launches[name] > 0,
               f"full_width_churn: the path never launched {name}")
     check(launches["apply_write"] == launches["apply_trim"] == 0,
           "full_width_churn: an event went through a per-row kernel")
     st = card_run.state
-    # gc_one decides every GC; each drain it decides demotes on the host,
-    # through compact_slots, and erases the victim
-    check(launches["compact_slots"] == int(st.n_erase),
-          f"full_width_churn: {launches['compact_slots']} compact_slots "
-          f"launches for {int(st.n_erase)} drains")
+    # gc_one decides every GC and drains (demoting) in the same launch
+    check(launches["gc_one_demote"] == launches["gc_one"]
+          and launches["compact_slots"] == 0,
+          f"full_width_churn: {launches['gc_one_demote']} demoting gc_one "
+          f"launches of {launches['gc_one']}, "
+          f"{launches['compact_slots']} compact_slots launches")
     want = CHURN_SYNCS.get((args.seed, n))
     check(want is None or syncs == want,
           f"full_width_churn: {syncs} host syncs, not {want}")
@@ -2280,7 +2286,8 @@ def mixed_fleet(args):
     with 8 spares, one wears out at 1 P-E cycle), single_group, bloom
     with §5.2 on writes (two seeds, and one failing half its attempts)
     and on the churn op stream (two seeds), and a trimmed static drive.
-    The faulty drives run the fault hook after the demoting drain.
+    The faulty drives run the fault hook after the demoting drain, in
+    the same gc_one launch.
     """
     from repro_torch.core import fleet, managers, workloads
     from repro_torch.core.ssd import Geometry
@@ -2455,8 +2462,10 @@ def phase_fleet(torch, args, card):
         seconds = time.perf_counter() - t0
         launches = read_launches()
         cpu_meta, cpu_drives, cpu_seconds = cpu_run.result()
-    for name in ("write_run", "gc_one", "compact_slots"):
+    for name in ("write_run", "gc_one", "gc_one_demote"):
         check(launches[name] > 0, f"fleet mixed: no {name} launch")
+    check(launches["compact_slots"] == 0,
+          "fleet mixed: a drain went through compact_slots")
     # static 3, fdp 4, bloom 3 and 2, single_group 1, trimmed static 1
     check(sorted(m["drives"] for m in card_res.exec_meta)
           == [1, 1, 2, 3, 3, 4],

@@ -39,11 +39,9 @@ gathers and scatters over the drive axis, and a drive outside the mask is
 left untouched. Each GC (the group's own, the emergency valve's, a
 movement operation's) is one ``kernels/gc_one`` launch for all the drives
 the mask enables: it chooses the group and the victim and decides on the
-device, as the JAX package's one ``lax.cond`` does; under the static
-detector the bulk drain runs in the same launch. A drain that demotes
-(FDP or bloom detector) runs on the host after one read of the D
-decisions, drive by drive on views of the batch, and moves the victim's
-slot metadata with ``kernels/gc_compact.compact_slots``.
+device, as the JAX package's one ``lax.cond`` does, and the bulk drain
+runs in the same launch, §5.6 demotion under the FDP and bloom detectors
+included, with no host read.
 
 Every other decision that the JAX package expresses as ``lax.cond`` or
 ``lax.while_loop`` is one read of a ``[D]`` vector, counted in
@@ -56,9 +54,9 @@ stopped), and none when no drive has a WRITE left.
 
 Faults (``SimContext.with_faults``; the rates, endurance limit and seed
 are per-drive policy): every GC erase may fail, and retire its block into
-the spare pool (the JAX package's ``_erase_fault_retire``). Under the
-static detector the hook runs inside the ``gc_one`` launch; after a
-demoting drain it runs on the drive's view as device ops, with no read.
+the spare pool (the JAX package's ``_erase_fault_retire``). The hook runs
+inside the ``gc_one`` launch after a bulk drain; after the reference
+drain it runs on each drive's view as device ops, with no read.
 Retired blocks leave the §5.5 OP budget. A retire that finds the spares
 or the pool exhausted degrades the drive; from its next event on every
 event is a counted no-op (``n_halted``, the JAX package's ``_halt_wrap``),
@@ -111,9 +109,13 @@ from repro_torch.core.ssd import (
     surplus_of,
 )
 from repro_torch.core.workloads import OP_TRIM
-from repro_torch.kernels.gc_compact.ops import compact_slots_
 from repro_torch.kernels.gc_one.ops import gc_one_
-from repro_torch.kernels.gc_one.ref import FAULT_POLICY, erase_fault_retire
+from repro_torch.kernels.gc_one.kernel import FDP_POLICY
+from repro_torch.kernels.gc_one.ref import (
+    FAULT_POLICY,
+    bloom_hashes,
+    erase_fault_retire,
+)
 from repro_torch.kernels.write_path.ops import apply_trim_
 from repro_torch.kernels.write_run.kernel import STOP_WHY
 from repro_torch.kernels.write_run.ops import write_run_
@@ -136,8 +138,8 @@ run_stops = dict.fromkeys(STOP_WHY[1:], 0)
 # completed §5.1 intervals, since the counts were last set to 0
 rounds = 0
 interval_batches = 0
-# under a torch profiler, each round, heavy tail, GC, demoting drain,
-# interval and read is also a span (repro_torch.utils.spans.LAYERS)
+# under a torch profiler, each round, heavy tail, GC, interval and read
+# is also a span (repro_torch.utils.spans.LAYERS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,9 +164,8 @@ class SimContext:
     # capacity leaves the §5.5 budget, and a degraded drive halts. False
     # runs the fault-free step exactly (no launch, no read of its own)
     with_faults: bool = False
-    # GC drain: "bulk" (the victim at once: in gc_one's launch under the
-    # static detector, _gc_drain_bulk under a demoting one) or "reference"
-    # (_gc_drain_reference, page by page: the oracle)
+    # GC drain: "bulk" (the victim at once, in gc_one's launch) or
+    # "reference" (_gc_drain_reference, page by page: the oracle)
     gc_impl: str = "bulk"
     # step engine: True runs the fast events in write_run's runs and only
     # the heavy ones through the tail; False steps every event through the
@@ -266,19 +267,12 @@ def stack_policies(policies) -> dict:
     return out
 
 
-def drive_policy(policy: dict, d: int) -> dict:
-    """Drive ``d``'s policy tensors as views without the drive axis (what
-    the per-drive demoting drain reads)."""
-    return {k: v[d] for k, v in policy.items() if k in POLICY_TENSORS}
-
-
 # ---------------------------------------------------------------------------
 # device indexing and host decisions
 # ---------------------------------------------------------------------------
 #
 # The heavy path indexes a batch's [D, N] fields with a [D] index, one
-# element a drive: _gat gathers, _sca and _acc scatter. The demoting drain
-# runs on one drive's views and indexes with 0-d tensors: _get, _set, _add.
+# element a drive: _gat gathers, _sca and _acc scatter.
 
 _made = {}  # (what, D, device) -> a constant [D] tensor
 
@@ -350,27 +344,6 @@ def _ones_on(st: SimState, on) -> torch.Tensor:
     if on is None:
         return _one_each(st.n_drives, st.device)
     return on.to(torch.int32)
-
-
-def _get(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``t[i]`` for a 0-d index tensor: a copy (never a view), no host read."""
-    return t.index_select(0, i.reshape(1)).reshape(t.shape[1:])
-
-
-def _set(t: torch.Tensor, i: torch.Tensor, v) -> None:
-    """``t[i] = v`` in place, for a 0-d index tensor (as :func:`_sca`)."""
-    if isinstance(v, torch.Tensor):
-        t.index_put_((i.reshape(1),), v.to(t.dtype).expand(1, *t.shape[1:]))
-    else:
-        t.index_fill_(0, i.reshape(1), v)
-
-
-def _add(t: torch.Tensor, i: torch.Tensor, v) -> None:
-    """``t[i] += v`` in place, for a 0-d index tensor."""
-    if isinstance(v, torch.Tensor):
-        t.index_add_(0, i.reshape(1), v.to(t.dtype).reshape(1))
-    else:
-        _set(t, i, _get(t, i) + v)
 
 
 def _read(t: torch.Tensor) -> np.ndarray:
@@ -559,13 +532,13 @@ def _neighbor_hotter(hr, active, g):
     return torch.where(cand.any(-1), nb, g)
 
 
-def _neighbor_colder(hr, active, g, *, g_known_active: bool = False):
+def _neighbor_colder(hr, active, g):
     """The next colder active group of g in the stable (-hr, index) order:
     the candidate (colder, or as cold with a higher index) with the highest
     hit rate, ties to the lowest index. With no candidate an active g stays
     put and an inactive g falls to the coldest active group (argsort's
-    ``clip(rank + 1, n_active - 1)``). ``g_known_active`` drops that
-    fallback (a GC drain's group is always active). Over the last axis, as
+    ``clip(rank + 1, n_active - 1)``; a GC drain's group is always active:
+    ``kernels/gc_one``'s ``colder_neighbor``). Over the last axis, as
     :func:`_neighbor_hotter`."""
     g_max = hr.shape[-1]
     idx = torch.arange(g_max, device=hr.device)
@@ -574,35 +547,17 @@ def _neighbor_colder(hr, active, g, *, g_known_active: bool = False):
     cand = active & ((hr < hr_g) | ((hr == hr_g) & (idx > g_)))
     best_hr = torch.where(cand, hr, -2.0).amax(-1, keepdim=True)
     nb = torch.where(cand & (hr == best_hr), idx, g_max).amin(-1)
-    if g_known_active:
-        fallback = g
-    else:
-        cold_hr = torch.where(active, hr, torch.inf).amin(-1, keepdim=True)
-        coldest = torch.where(active & (hr == cold_hr), idx, -1).amax(-1)
-        fallback = torch.where(active.gather(-1, g_).squeeze(-1), g, coldest)
+    cold_hr = torch.where(active, hr, torch.inf).amin(-1, keepdim=True)
+    coldest = torch.where(active & (hr == cold_hr), idx, -1).amax(-1)
+    fallback = torch.where(active.gather(-1, g_).squeeze(-1), g, coldest)
     return torch.where(cand.any(-1), nb, fallback)
 
 
 def _bloom_hashes(ctx: SimContext, lba):
     """The JAX package's two uint32 hashes of ``lba`` (int tensor, any
-    shape, non-negative), reduced mod the filter width: the products wrap
-    at 2**32 there, so they are taken in int64 and masked to 32 bits."""
+    shape, non-negative) mod the context's filter width, and the width."""
     bits = bloom_bits(ctx.geom, ctx.mcfg)
-    u = lba.long() & 0xFFFFFFFF
-    h1 = ((u * 2654435761) & 0xFFFFFFFF) % bits
-    h2 = ((u * 40503 + 99991) & 0xFFFFFFFF) % bits
-    return h1, h2, bits
-
-
-def _bloom_query(ctx: SimContext, filt, lba, g):
-    """Whether ``lba`` (int tensor, any shape) is in group g's filter of
-    one drive's pair ``filt`` [G, bits] (g a 0-d tensor)."""
-    h1, h2, bits = _bloom_hashes(ctx, lba)
-    flat = filt.view(-1)
-    base = g * bits
-    hit1 = flat.index_select(0, (base + h1).reshape(-1))
-    hit2 = flat.index_select(0, (base + h2).reshape(-1))
-    return (hit1 & hit2).reshape(h1.shape)
+    return (*bloom_hashes(lba, bits), bits)
 
 
 def _bloom_in(ctx: SimContext, filt, lba, g):
@@ -685,176 +640,9 @@ def _target_group_gc(ctx: SimContext, st: SimState, lba, cur_g, policy,
     return torch.where(_and(demote, on), nb, cur_g)
 
 
-def _demote_flags(ctx: SimContext, st: SimState, lbas, g, policy):
-    """The §5.6 GC demotion predicate over one drive's victim pages
-    ``lbas`` [B]: FDP's oracle rate below half the group's assumed rate,
-    or the page in neither bloom filter. It reads only what a drain leaves
-    unchanged."""
-    if ctx.mcfg.td_mode == "fdp":
-        r = policy["page_rate"].index_select(0, lbas)
-        return r < 0.5 * _get(policy["fdp_rate"], g)
-    in_a = _bloom_query(ctx, st.bloom_active, lbas, g)
-    in_p = _bloom_query(ctx, st.bloom_passive, lbas, g)
-    return ~in_a & ~in_p
-
-
 # ---------------------------------------------------------------------------
 # garbage collection (one victim) — §5.4
 # ---------------------------------------------------------------------------
-
-def _scatter_live(t: torch.Tensor, idx, vals, mask) -> None:
-    """``t[idx[mask]] = vals[mask]`` in place without a host read: rows
-    outside the mask store again what the first masked row stores (or, if
-    no row is masked, the value already there), so duplicate indices all
-    agree whichever write lands last."""
-    first = torch.argmax(mask.to(torch.int32))
-    any_ = mask.any()
-    fill_idx = torch.where(any_, _get(idx, first), idx[0])
-    fill_val = torch.where(any_, _get(vals, first), _get(t, fill_idx))
-    t.index_put_(
-        (torch.where(mask, idx, fill_idx),),
-        torch.where(mask, vals, fill_val).to(t.dtype),
-    )
-
-
-def _demotion_targets(st: SimState, flagged: np.ndarray, g) -> torch.Tensor:
-    """Target group [B] of each victim slot: one group colder for the
-    flagged live slots, g for the rest. The colder neighbour reads hit
-    rates over the group sizes as the drain has moved them so far, so the
-    flagged slots are taken in slot order; each step runs on the device
-    (only which slots are flagged came to the host, in one read)."""
-    b = flagged.shape[0]
-    targets = g.expand(b).clone()
-    sizes = st.grp_live.clone()
-    for j in np.flatnonzero(flagged).tolist():
-        hr = torch.where(
-            st.grp_active, st.grp_p / sizes.to(torch.float32).clamp(min=1.0),
-            -1.0,
-        )
-        nb = _neighbor_colder(hr, st.grp_active, g, g_known_active=True)
-        targets[j] = nb
-        _add(sizes, g, -1)
-        _add(sizes, nb, 1)
-    return targets
-
-
-def _gc_drain_bulk(ctx: SimContext, st: SimState, victim, g, policy) -> None:
-    """Migrate every live page of one drive's ``victim``, each into its
-    target group (§5.6 demotion under the FDP or bloom detector), then
-    erase it (the JAX package's ``_gc_drain_bulk``). ``st`` is one drive
-    (views into its batch), ``policy`` its :func:`drive_policy`, ``victim``
-    and ``g`` 0-d tensors.
-
-    Pages are counted per target group; each group whose pages overflow its
-    active block claims ONE fresh block, and the i-th claim (ordered by
-    the slot of the group's first page that does not fit) takes the i-th
-    lowest FREE block, what the sequential pop hands out. The slot contents
-    move through ``compact_slots`` as one move list.
-    """
-    b = ctx.geom.pages_per_block
-    k = ctx.geom.n_blocks
-    g_max = st.grp_active.shape[0]
-    dev = st.device
-    lbas = _get(st.slot_lba, victim)       # [B]; dead slots hold -1
-    is_live = _get(st.valid, victim)       # [B]
-    lbas_c = lbas.clamp(min=0).long()
-
-    # -- per-slot target groups (one read: which live slots demote) ---------
-    flagged = _read(_demote_flags(ctx, st, lbas_c, g, policy) & is_live)
-    if flagged.any():
-        targets = _demotion_targets(st, flagged, g)
-    else:
-        targets = g.expand(b).clone()
-
-    # -- pages per target group; fresh-block claims -------------------------
-    idx = torch.arange(b, device=dev)
-    arange_g = torch.arange(g_max, device=dev)
-    onehot_t = torch.where(is_live, targets, g_max)[:, None] == arange_g
-    m = onehot_t.sum(0)                    # [G] live pages per target
-    ab = st.active_blk.long()
-    has_ab = ab >= 0
-    ab_c = ab.clamp(min=0)
-    fill_ab = torch.where(has_ab, st.fill.index_select(0, ab_c).long(), b)
-    space = b - fill_ab.clamp(max=b)       # [G] free slots in active blocks
-    claim = m > space
-    seal = claim & has_ab
-    # within-group rank of each live page, in slot order
-    same = ((targets[:, None] == targets[None, :])
-            & is_live[None, :] & is_live[:, None])
-    rank = (same & (idx[None, :] < idx[:, None])).sum(1)
-    space_t = space.index_select(0, targets)
-    first_out = is_live & (rank == space_t)    # a group's first overflow
-    claim_pos = torch.where(onehot_t & first_out[:, None], idx[:, None],
-                            INT_MAX).amin(0)
-    claim_rank = (claim[None, :]
-                  & (claim_pos[None, :] < claim_pos[:, None])).sum(1)
-    # free_by_rank[r]: the r-th lowest FREE block (k when there is none)
-    n_free_before = torch.cumsum((st.state == FREE).long(), 0)
-    free_by_rank = torch.searchsorted(n_free_before, arange_g + 1)
-    claim_ok = claim & (claim_rank < st.free_blocks)
-    new_blk = torch.where(
-        claim_ok,
-        free_by_rank.index_select(0, claim_rank.clamp(max=g_max - 1)), -1,
-    )
-
-    # -- per-page destinations ---------------------------------------------
-    in_old = rank < space_t
-    dst_blk = torch.where(in_old, ab_c.index_select(0, targets),
-                          new_blk.index_select(0, targets))
-    dst_slot = torch.where(in_old, fill_ab.index_select(0, targets) + rank,
-                           rank - space_t)
-    ok = is_live & (in_old | claim_ok.index_select(0, targets))
-    db = torch.where(ok, dst_blk, k)       # masked rows land nowhere
-
-    # -- seal / claim bookkeeping ([K + 1] scratch: row k takes the rest) ---
-    sealed = torch.zeros(k + 1, dtype=torch.bool, device=dev)
-    sealed.index_fill_(0, torch.where(seal, ab_c, k), True)
-    claimed_by = torch.full((k + 1,), -1, dtype=torch.long, device=dev)
-    claim_at = torch.where(claim_ok, new_blk, k)
-    claimed_by.index_copy_(0, claim_at, arange_g)
-    claim_stamp = torch.zeros(k + 1, dtype=torch.long, device=dev)
-    claim_stamp.index_copy_(0, claim_at, st.clock + claim_rank)
-    claimed = claimed_by[:k] >= 0
-    st.state.copy_(torch.where(
-        claimed, OPEN, torch.where(sealed[:k], CLOSED, st.state)))
-    st.group_of.copy_(torch.where(claimed, claimed_by[:k], st.group_of))
-    st.stamp.copy_(torch.where(claimed, claim_stamp[:k], st.stamp))
-    n_claimed = claim_ok.sum()
-    clock = st.clock + n_claimed
-    st.active_blk.copy_(torch.where(claim_ok, new_blk, ab))
-
-    # -- land the pages -----------------------------------------------------
-    landed_k = torch.zeros(k + 1, dtype=torch.int32, device=dev)
-    landed_k.index_add_(0, db, ok.to(torch.int32))
-    st.fill.copy_(torch.where(claimed, 0, st.fill) + landed_k[:k])
-    st.live.add_(landed_k[:k])
-    src = torch.where(ok, victim, -1).to(torch.int32)
-    compact_slots_(
-        st.slot_lba[None], st.valid[None], src[None],
-        idx.to(torch.int32)[None], db.to(torch.int32)[None],
-        dst_slot.to(torch.int32)[None],
-    )
-    _scatter_live(
-        st.page_map, lbas_c, torch.where(ok, dst_blk * b + dst_slot, -1),
-        is_live,
-    )
-    n_live = is_live.sum()
-    n_ok = ok.sum()
-    landed_g = torch.zeros(g_max, dtype=torch.int32, device=dev)
-    landed_g.index_add_(0, targets, ok.to(torch.int32))
-    for grp in (st.grp_size, st.grp_live):
-        grp.add_(landed_g)
-        _add(grp, g, -n_live)
-
-    # -- erase the victim ---------------------------------------------------
-    st.grp_phys.add_(claim_ok.to(torch.int32))
-    st.free_blocks.sub_(n_claimed)
-    st.mapped_pages.sub_(n_live - n_ok)
-    st.n_mig.add_(n_ok)
-    st.n_dropped.add_(n_live - n_ok)
-    st.clock.copy_(clock)
-    _erase_victims(st.batch, victim.reshape(1), g.reshape(1))
-
 
 def _gc_drain_reference(ctx: SimContext, st: SimState, victim, g, policy,
                         on=None) -> None:
@@ -921,41 +709,41 @@ def _gc_one(ctx: SimContext, st: SimState, policy, mode: str,
     the group by ``mode`` ("gc": g[d], enabled when it needs a block it is
     not entitled to or the pool is at reserve; "valve": where the fewest
     live pages are, greedy weights; "movement": the most block-surplus
-    group), the victim, and the decision, all on the device. Under the
-    static detector with the bulk drain, the drain runs in the same
-    launch, without a host read, and with faults its erase goes through
-    the retire hook there too. Otherwise the launch only decides, and the
-    drain follows after one read of the D decisions: the reference drain
-    for every deciding drive at once, or a demoting bulk drain drive by
-    drive; then, with faults, the hook as device ops."""
+    group), the victim, and the decision, all on the device. With the bulk
+    drain, the drain runs in the same launch (demoting under the FDP and
+    bloom detectors), without a host read, and with faults its erase goes
+    through the retire hook there too. With the reference drain the launch
+    only decides: after one read of the D decisions, the reference drain
+    for every deciding drive at once, then, with faults, the hook drive by
+    drive as device ops."""
     with span(_GC_SPANS[mode]):
         gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
         out = torch.empty((st.n_drives, 3), dtype=torch.int64,
                           device=st.device)
-        drain = ctx.gc_impl == "bulk" and ctx.mcfg.td_mode == "static"
+        drain = ctx.gc_impl == "bulk"
         faults = ({k: policy[k] for k in FAULT_POLICY} if ctx.with_faults
                   else None)
+        fdp = drain and ctx.mcfg.td_mode == "fdp"
         retries = ctx.mcfg.erase_max_retries
         gc_one_(st.drive_axis, gc_w, None if g is None else g.long(), out,
-                on, faults if drain else None, mode=mode,
-                td_mode=ctx.mcfg.td_mode, drain=drain,
+                on, faults if drain else None,
+                {k: policy[k] for k in FDP_POLICY} if fdp else None,
+                mode=mode, td_mode=ctx.mcfg.td_mode, drain=drain,
                 gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks,
                 erase_max_retries=retries)
         if drain:
             return
         do = out[:, 2] != 0
         sel = _read(do)
-        if ctx.gc_impl == "reference" and sel.any():
-            _gc_drain_reference(ctx, st, out[:, 0], out[:, 1], policy,
-                                _on(sel, do))
+        if not sel.any():
+            return
+        _gc_drain_reference(ctx, st, out[:, 0], out[:, 1], policy,
+                            _on(sel, do))
+        if faults is None:
+            return
         for d in np.flatnonzero(sel).tolist():
-            drive, pol = st.drive(d), drive_policy(policy, d)
-            if ctx.gc_impl == "bulk":
-                with span("gc.demote_drain"):
-                    _gc_drain_bulk(ctx, drive, out[d, 0], out[d, 1], pol)
-            if faults is not None:
-                erase_fault_retire(drive, out[d, 0], out[d, 1], pol,
-                                   retries)
+            erase_fault_retire(st.drive(d), out[d, 0], out[d, 1],
+                               {k: v[d] for k, v in faults.items()}, retries)
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,2 @@
-"""One garbage collection of the simulator (group, victim, decision and,
-under the static detector, the drain) in one launch."""
+"""One garbage collection of the simulator (group, victim, decision and
+the drain, §5.6 demotion included) in one launch."""

@@ -6,11 +6,12 @@ does (the given g, enabled when it needs a block it is not entitled to or
 the pool is at reserve; the emergency valve's group of the CLOSED block
 with the fewest live pages; the movement operation's group of the largest
 surplus), its victim by the weighted score (:func:`select_victim`), and
-decides; asked to drain (the static detector's bulk drain), a decided GC
-drains the victim (:func:`drain_static`) and, with a fault policy, the
-erase goes through the retry-then-retire hook (:func:`erase_fault_retire`). ``out[d] = (victim,
-g, do)``. A drive that ``enable`` leaves out is not touched: ``out[d] =
-(-1, -1, 0)``.
+decides; asked to drain, a decided GC drains the victim (the static
+detector's :func:`drain_static`; the FDP and bloom detectors'
+:func:`drain_demoting`, inside a ``gc.demote_drain`` span) and, with a
+fault policy, the erase goes through the retry-then-retire hook
+(:func:`erase_fault_retire`). ``out[d] = (victim, g, do)``. A drive that
+``enable`` leaves out is not touched: ``out[d] = (-1, -1, 0)``.
 
 Decisions are Python values read from the tensors, uncounted: on the CPU
 the tensors are the host's own. The score is the simulator's float32
@@ -31,7 +32,9 @@ from repro_torch.core.ssd import (
     STATUS_DEGRADED,
     STATUS_OK,
 )
+from repro_torch.kernels.gc_compact.ops import compact_slots_
 from repro_torch.kernels.gc_one.kernel import FAULT_POLICY
+from repro_torch.utils.spans import span
 
 _U32 = 0xFFFFFFFF
 
@@ -170,32 +173,206 @@ def drain_static(s, victim: int, g: int) -> None:
     if dropped:
         page_map[dropped] = -1
 
-    # -- erase the victim ---------------------------------------------------
-    # +1 physical block if one was claimed, -1 for the erased victim
-    if not claim_ok:
-        s["grp_phys"][g] -= 1
-    s["grp_surplus"].copy_(torch.where(
-        s["grp_active"], s["grp_phys"] - s["grp_alloc"], -INT32_MAX))
-    s["free_blocks"].fill_(free0 + (0 if claim_ok else 1))
+    # -- the counters, then the victim erased ---------------------------------
+    s["grp_phys"][g] += int(claim_ok)
+    s["free_blocks"].fill_(free0 - int(claim_ok))
     s["mapped_pages"].sub_(n_live - n_ok)
     s["grp_size"][g] += n_ok - n_live
     s["grp_live"][g] += n_ok - n_live
     s["n_mig"].add_(n_ok)
     s["n_dropped"].add_(n_live - n_ok)
+    erase(s, victim, g, clock)
+
+
+def erase(s, victim: int, g: int, clock: int) -> None:
+    """Erase one drive's drained ``victim`` of group g at ``clock`` (the
+    claims' stamps already taken), in place on its fields ``s``: g's block
+    back in the pool and every group's surplus, then the victim FREE,
+    unlabelled, empty, stamped, one more P-E cycle (Σe² gains (e+1)² −
+    e²), its trimmed-slot tally cleared, the clock advanced."""
+    s["grp_phys"][g] -= 1
+    s["grp_surplus"].copy_(torch.where(
+        s["grp_active"], s["grp_phys"] - s["grp_alloc"], -INT32_MAX))
+    s["free_blocks"].add_(1)
     e_old = int(s["erase_count"][victim])
-    state[victim] = FREE
-    group_of[victim] = -1
-    fill[victim] = 0
-    live[victim] = 0
-    slot_lba[victim] = -1
-    valid[victim] = False
-    stamp[victim] = clock
+    s["state"][victim] = FREE
+    s["group_of"][victim] = -1
+    s["fill"][victim] = 0
+    s["live"][victim] = 0
+    s["slot_lba"][victim] = -1
+    s["valid"][victim] = False
+    s["stamp"][victim] = clock
     s["clock"].fill_(clock + 1)
     s["n_erase"].add_(1)
     s["erase_count"][victim] = e_old + 1
     s["trim_dead"][victim] = 0
     s["erase_total"].add_(1)
     s["erase_sq_total"].add_(2 * e_old + 1)
+
+
+def bloom_hashes(lba, bits: int):
+    """The JAX package's two uint32 hashes of ``lba`` (int tensor, any
+    shape, non-negative), reduced mod the filter width ``bits``: the
+    products wrap at 2**32 there, so they are taken in int64 and masked to
+    32 bits."""
+    u = lba.long() & _U32
+    h1 = ((u * 2654435761) & _U32) % bits
+    h2 = ((u * 40503 + 99991) & _U32) % bits
+    return h1, h2
+
+
+def bloom_query(filt, lba, g: int):
+    """Whether each page of ``lba`` (int tensor, any shape) is in group
+    g's filter of one drive's pair ``filt`` [G, bits]."""
+    h1, h2 = bloom_hashes(lba, filt.shape[-1])
+    return filt[g, h1] & filt[g, h2]
+
+
+def demote_flags(s, lbas, g: int, fdp_policy=None):
+    """The §5.6 GC demotion predicate over one drive's victim pages
+    ``lbas`` [B] (its fields ``s``): under the FDP detector (``fdp_policy``,
+    the drive's rates) the oracle rate below half the group's assumed rate,
+    else the page in neither of group g's bloom filters. It reads only what
+    a drain leaves unchanged."""
+    if fdp_policy is not None:
+        return (fdp_policy["page_rate"][lbas]
+                < 0.5 * fdp_policy["fdp_rate"][g])
+    return (~bloom_query(s["bloom_active"], lbas, g)
+            & ~bloom_query(s["bloom_passive"], lbas, g))
+
+
+def colder_neighbor(hr, active, g: int) -> int:
+    """The next colder active group of an active g in the stable (-hr,
+    index) order of one drive's hit rates ``hr`` [G]: the candidate
+    (colder, or as cold with a higher index) with the highest hit rate,
+    ties to the lowest index; g itself when it is the coldest."""
+    n = hr.shape[0]
+    idx = torch.arange(n, device=hr.device)
+    cand = active & ((hr < hr[g]) | ((hr == hr[g]) & (idx > g)))
+    if not bool(cand.any()):
+        return g
+    best = torch.where(cand, hr, -2.0).amax()
+    return int(torch.where(cand & (hr == best), idx, n).amin())
+
+
+def demotion_targets(s, flagged, g: int):
+    """Target group [B] of each victim slot: one group colder for the
+    ``flagged`` live slots, g for the rest. The colder neighbour reads hit
+    rates over the group sizes as the drain has moved them so far, so the
+    flagged slots are taken in slot order."""
+    targets = torch.full(flagged.shape, g, dtype=torch.long,
+                         device=flagged.device)
+    sizes = s["grp_live"].clone()
+    active = s["grp_active"]
+    for j in flagged.nonzero().flatten().tolist():
+        hr = torch.where(
+            active, s["grp_p"] / sizes.to(torch.float32).clamp(min=1.0), -1.0)
+        nb = colder_neighbor(hr, active, g)
+        targets[j] = nb
+        sizes[g] -= 1
+        sizes[nb] += 1
+    return targets
+
+
+def drain_demoting(s, victim: int, g: int, fdp_policy=None) -> None:
+    """Migrate every live page of ``victim``, each into its target group
+    (§5.6 demotion under the FDP or bloom detector), then erase it (the
+    JAX package's ``_gc_drain_bulk``), in place on one drive's fields
+    ``s``; ``fdp_policy`` holds the drive's FDP rates (None under bloom).
+
+    Pages are counted per target group; each group whose pages overflow its
+    active block claims ONE fresh block, and the i-th claim (ordered by
+    the slot of the group's first page that does not fit) takes the i-th
+    lowest FREE block, what the sequential pop hands out; pages that find
+    no block are dropped and counted. The slot contents move through
+    ``compact_slots`` as one move list."""
+    slot_lba, valid = s["slot_lba"], s["valid"]
+    k, b = slot_lba.shape
+    g_max = s["grp_active"].shape[0]
+    dev = slot_lba.device
+    lbas = slot_lba[victim].clone()        # [B]; dead slots hold -1
+    is_live = valid[victim].clone()        # [B]
+    lbas_c = lbas.clamp(min=0).long()
+    targets = demotion_targets(
+        s, demote_flags(s, lbas_c, g, fdp_policy) & is_live, g)
+
+    # -- pages per target group; fresh-block claims -------------------------
+    idx = torch.arange(b, device=dev)
+    arange_g = torch.arange(g_max, device=dev)
+    onehot_t = torch.where(is_live, targets, g_max)[:, None] == arange_g
+    m = onehot_t.sum(0)                    # [G] live pages per target
+    ab = s["active_blk"].long()
+    has_ab = ab >= 0
+    ab_c = ab.clamp(min=0)
+    fill_ab = torch.where(has_ab, s["fill"][ab_c].long(), b)
+    space = b - fill_ab.clamp(max=b)       # [G] free slots in active blocks
+    claim = m > space
+    seal = claim & has_ab
+    # within-group rank of each live page, in slot order
+    same = ((targets[:, None] == targets[None, :])
+            & is_live[None, :] & is_live[:, None])
+    rank = (same & (idx[None, :] < idx[:, None])).sum(1)
+    space_t = space[targets]
+    first_out = is_live & (rank == space_t)    # a group's first overflow
+    claim_pos = torch.where(onehot_t & first_out[:, None], idx[:, None],
+                            INT32_MAX).amin(0)
+    claim_rank = (claim[None, :]
+                  & (claim_pos[None, :] < claim_pos[:, None])).sum(1)
+    # free_by_rank[r]: the r-th lowest FREE block (k when there is none)
+    n_free_before = torch.cumsum((s["state"] == FREE).long(), 0)
+    free_by_rank = torch.searchsorted(n_free_before, arange_g + 1)
+    claim_ok = claim & (claim_rank < s["free_blocks"])
+    new_blk = torch.where(
+        claim_ok, free_by_rank[claim_rank.clamp(max=g_max - 1)], -1)
+
+    # -- per-page destinations ---------------------------------------------
+    in_old = rank < space_t
+    dst_blk = torch.where(in_old, ab_c[targets], new_blk[targets])
+    dst_slot = torch.where(in_old, fill_ab[targets] + rank, rank - space_t)
+    ok = is_live & (in_old | claim_ok[targets])
+    db = torch.where(ok, dst_blk, k)       # masked rows land nowhere
+
+    # -- seal / claim bookkeeping ([K + 1] scratch: row k takes the rest) ---
+    sealed = torch.zeros(k + 1, dtype=torch.bool, device=dev)
+    sealed.index_fill_(0, torch.where(seal, ab_c, k), True)
+    claimed_by = torch.full((k + 1,), -1, dtype=torch.long, device=dev)
+    claim_at = torch.where(claim_ok, new_blk, k)
+    claimed_by.index_copy_(0, claim_at, arange_g)
+    claim_stamp = torch.zeros(k + 1, dtype=torch.long, device=dev)
+    claim_stamp.index_copy_(0, claim_at, s["clock"] + claim_rank)
+    claimed = claimed_by[:k] >= 0
+    s["state"].copy_(torch.where(
+        claimed, OPEN, torch.where(sealed[:k], CLOSED, s["state"])))
+    s["group_of"].copy_(torch.where(claimed, claimed_by[:k], s["group_of"]))
+    s["stamp"].copy_(torch.where(claimed, claim_stamp[:k], s["stamp"]))
+    n_claimed = int(claim_ok.sum())
+    s["active_blk"].copy_(torch.where(claim_ok, new_blk, ab))
+
+    # -- land the pages -----------------------------------------------------
+    landed_k = torch.zeros(k + 1, dtype=torch.int32, device=dev)
+    landed_k.index_add_(0, db, ok.to(torch.int32))
+    s["fill"].copy_(torch.where(claimed, 0, s["fill"]) + landed_k[:k])
+    s["live"].add_(landed_k[:k])
+    src = torch.where(ok, victim, -1).to(torch.int32)
+    compact_slots_(slot_lba[None], valid[None], src[None],
+                   idx.to(torch.int32)[None], db.to(torch.int32)[None],
+                   dst_slot.to(torch.int32)[None])
+    s["page_map"][lbas_c[is_live]] = torch.where(
+        ok, dst_blk * b + dst_slot, -1)[is_live].to(torch.int32)
+    n_live, n_ok = int(is_live.sum()), int(ok.sum())
+    landed_g = torch.zeros(g_max, dtype=torch.int32, device=dev)
+    landed_g.index_add_(0, targets, ok.to(torch.int32))
+    for grp in (s["grp_size"], s["grp_live"]):
+        grp.add_(landed_g)
+        grp[g] -= n_live
+
+    # -- the counters, then the victim erased ---------------------------------
+    s["grp_phys"].add_(claim_ok.to(torch.int32))
+    s["free_blocks"].sub_(n_claimed)
+    s["mapped_pages"].sub_(n_live - n_ok)
+    s["n_mig"].add_(n_ok)
+    s["n_dropped"].add_(n_live - n_ok)
+    erase(s, victim, g, int(s["clock"]) + n_claimed)
 
 
 def _mul32(x, c: int):
@@ -290,15 +467,15 @@ def erase_fault_retire(s, victim, g, policy, erase_max_retries: int) -> None:
     s["fault_draws"].view(torch.int32).add_(1)  # wraps as uint32 does
 
 
-def gc_one_ref(state, gc_w, g, out, enable=None, fault_policy=None, *, mode,
-               td_mode, drain, gc_reserve_blocks,
+def gc_one_ref(state, gc_w, g, out, enable=None, fault_policy=None,
+               fdp_policy=None, *, mode, td_mode, drain, gc_reserve_blocks,
                erase_max_retries=0) -> None:
     """In place, the arguments of ``gc_one_cuda`` (see
     ``kernel.check_args``): each enabled drive's GC, one drive after
-    another, decided and, with ``drain``, drained; with ``fault_policy``
-    (the :data:`FAULT_POLICY` tensors [D]) each drain's erase goes through
-    :func:`erase_fault_retire`."""
-    del td_mode  # the drain lands every page back in its group
+    another, decided and, with ``drain``, drained (demoting under the FDP
+    and bloom detectors, from the drive's ``fdp_policy`` rates under FDP);
+    with ``fault_policy`` (the :data:`FAULT_POLICY` tensors [D]) each
+    drain's erase goes through :func:`erase_fault_retire`."""
     for d in range(out.shape[0]):
         if enable is not None and not bool(enable[d]):
             out[d] = torch.tensor([-1, -1, 0], device=out.device)
@@ -308,10 +485,16 @@ def gc_one_ref(state, gc_w, g, out, enable=None, fault_policy=None, *, mode,
             s, gc_w[d], None if g is None else int(g[d]), mode=mode,
             gc_reserve_blocks=gc_reserve_blocks)
         out[d] = torch.tensor([victim, grp, int(do)], device=out.device)
-        if do and drain:
+        if not (do and drain):
+            continue
+        if td_mode == "static":
             drain_static(s, victim, grp)
-            if fault_policy is not None:
-                erase_fault_retire(
-                    s, out[d, 0], out[d, 1],
-                    {k: fault_policy[k][d] for k in FAULT_POLICY},
-                    erase_max_retries)
+        else:
+            with span("gc.demote_drain"):
+                drain_demoting(s, victim, grp, None if fdp_policy is None
+                               else {k: v[d] for k, v in fdp_policy.items()})
+        if fault_policy is not None:
+            erase_fault_retire(
+                s, out[d, 0], out[d, 1],
+                {k: fault_policy[k][d] for k in FAULT_POLICY},
+                erase_max_retries)

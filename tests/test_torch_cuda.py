@@ -149,14 +149,20 @@ def test_card_op_stream_run_matches_cpu_run(cuda):
     """wolf_dynamic on tpcc_churn (bloom detector, demoting drains, §5.2
     groups, TRIMs) on the card equals the CPU run, bit for bit. Every
     TRIM and fast write lands through the run kernel, none through the
-    per-row kernels."""
+    per-row kernels, and every GC drains in its gc_one launch, none
+    through compact_slots."""
     geom = Geometry(4, 32, 8)
     phases = [workloads.tpcc_churn(geom.lba_pages, 3000)]
-    n = (wr_kernel.launches, wp_kernel.launches, wp_kernel.trim_launches)
+    n = (wr_kernel.launches, wp_kernel.launches, wp_kernel.trim_launches,
+         gc_kernel.launches, gc_one_kernel.launches,
+         gc_one_kernel.demote_launches)
     card = managers.simulate(geom, managers.wolf_dynamic(), phases, seed=3,
                              device="cuda")
     assert wr_kernel.launches > n[0]
-    assert (wp_kernel.launches, wp_kernel.trim_launches) == n[1:]
+    assert (wp_kernel.launches, wp_kernel.trim_launches,
+            gc_kernel.launches) == n[1:4]
+    gcs = gc_one_kernel.launches - n[4]
+    assert gcs > 0 and gc_one_kernel.demote_launches - n[5] == gcs
     host = managers.simulate(geom, managers.wolf_dynamic(), phases, seed=3,
                              device="cpu")
     np.testing.assert_array_equal(card.app, host.app)
@@ -271,6 +277,47 @@ def test_write_run_kernel_matches_plain_version(cuda, td_mode, with_trim, d):
             assert torch.equal(got[group][k].cpu(), v), k
 
 
+def _gc_one_args(td_mode, d, mode, fault_fields=False):
+    """gc_one's arguments for d copies of ``_table2_drive(td_mode)``'s
+    state on the CPU (with the fault hook's fields when asked), drained:
+    group d % groups in mode "gc"; under a demoting detector every odd
+    drive has every page flagged (bloom: its filters cleared; FDP: its
+    oracle rates 0), so its pages demote, and the even drives keep the
+    run's filters and rates. Returns (ctx, args, kw)."""
+    ctx, st, policy, _ = _table2_drive(td_mode, td_mode == "bloom")
+    fields = gc_one_kernel.STATE_FIELDS + (
+        gc_one_kernel.DEMOTE_FIELDS if td_mode != "static" else ()) + (
+        gc_one_kernel.FAULT_FIELDS if fault_fields else ())
+    state = {k: (v.view(1) if v.dim() == 0 else v[None])
+             for k, v in ((k, getattr(st, k).cpu()) for k in fields)}
+    state = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
+             for k, v in state.items()}
+    fdp_policy = None
+    if td_mode == "bloom":
+        state["bloom_active"][1::2] = False
+        state["bloom_passive"][1::2] = False
+    elif td_mode == "fdp":
+        fdp_policy = {k: policy[k].cpu().repeat(d, 1)
+                      for k in gc_one_kernel.FDP_POLICY}
+        fdp_policy["page_rate"][1::2] = 0.0
+    gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"].cpu()
+    args = dict(state=state, gc_w=gc_w.repeat(d, 1),
+                g=torch.arange(d) % ctx.n_groups if mode == "gc" else None,
+                out=torch.full((d, 3), -9, dtype=torch.int64),
+                fdp_policy=fdp_policy)
+    kw = dict(mode=mode, td_mode=td_mode, drain=True,
+              gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
+    return ctx, args, kw
+
+
+def _on(args, device):
+    """A copy of gc_one's arguments on ``device``."""
+    return {k: None if v is None else (
+        {kk: vv.to(device, copy=True) for kk, vv in v.items()}
+        if isinstance(v, dict) else v.to(device, copy=True))
+        for k, v in args.items()}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 4])
 @pytest.mark.parametrize("mode", ["gc", "valve", "movement"])
@@ -281,54 +328,35 @@ def test_gc_one_kernel_matches_plain_version(cuda, td_mode, mode, d):
     gc_one_ref: out and every state field exact. In mode "gc" every drive
     but the last (of several) has its group's open block full and over
     budget, and in mode "movement" its group two blocks over its
-    allocation, so GCs are decided (and, static, drained) and refused."""
-    ctx, st, policy, _ = _table2_drive(td_mode, td_mode == "bloom")
-    b = TABLE2.pages_per_block
-    state = {k: (v.view(1) if k in gc_one_kernel.COUNTERS else v[None])
-             for k, v in ((k, getattr(st, k).cpu())
-                          for k in gc_one_kernel.STATE_FIELDS)}
-    state = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
-             for k, v in state.items()}
-    g = torch.arange(d) % ctx.n_groups
+    allocation, so GCs are decided and drained (demoting under FDP and
+    bloom, every page of the odd drives flagged) and refused."""
+    ctx, args, kw = _gc_one_args(td_mode, d, mode)
+    state, g, b = args["state"], args["g"], TABLE2.pages_per_block
     for i in range(d - (d > 1)):
         if mode == "gc":
             ab = int(state["active_blk"][i, g[i]])
             state["fill"][i, ab] = b
             state["grp_alloc"][i, g[i]] = 0
         elif mode == "movement":
-            state["grp_alloc"][i, g[i]] = state["grp_phys"][i, g[i]] - 2
+            gm = i % ctx.n_groups
+            state["grp_alloc"][i, gm] = state["grp_phys"][i, gm] - 2
             state["grp_surplus"][i] = torch.where(
                 state["grp_active"][i],
                 state["grp_phys"][i] - state["grp_alloc"][i], -(2**31 - 1))
-    gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"].cpu()
-    args = dict(state=state, gc_w=gc_w.repeat(d, 1),
-                g=g if mode == "gc" else None,
-                out=torch.full((d, 3), -9, dtype=torch.int64))
-    kw = dict(mode=mode, td_mode=td_mode, drain=td_mode == "static",
-              gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
-
-    def on(device):
-        return {k: None if v is None else (
-            {kk: vv.to(device, copy=True) for kk, vv in v.items()}
-            if isinstance(v, dict) else v.to(device, copy=True))
-            for k, v in args.items()}
-
-    got, want = on(cuda), on("cpu")
-    n_launch = gc_one_kernel.launches
+    got, want = _on(args, cuda), _on(args, "cpu")
+    n_launch = (gc_one_kernel.launches, gc_one_kernel.demote_launches)
     gc_one_kernel.gc_one_cuda(**got, **kw)
     torch.cuda.synchronize()
-    assert gc_one_kernel.launches == n_launch + 1
+    assert gc_one_kernel.launches == n_launch[0] + 1
+    assert gc_one_kernel.demote_launches == n_launch[1] + (
+        td_mode != "static")
     gc_one_ref.gc_one_ref(**want, **kw)
     assert want["out"][:, 2].any()
     assert torch.equal(got["out"].cpu(), want["out"])
     for k, v in want["state"].items():
         assert torch.equal(got["state"][k].cpu(), v), k
-    if td_mode == "static":
-        drained = want["state"]["n_erase"] - args["state"]["n_erase"]
-        assert torch.equal(drained, want["out"][:, 2].int())
-    else:  # the demoting drain is the host's
-        for k, v in want["state"].items():
-            assert torch.equal(v, args["state"][k]), k
+    drained = want["state"]["n_erase"] - state["n_erase"]
+    assert torch.equal(drained, want["out"][:, 2].int())
 
 
 @pytest.mark.cuda
@@ -412,39 +440,20 @@ def test_card_reference_engine_matches_cpu(cuda, preset, workload, engine):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["gc", "valve", "movement"])
-@pytest.mark.parametrize("td_mode", ["static", "fdp"])
+@pytest.mark.parametrize("td_mode", ["static", "fdp", "bloom"])
 def test_gc_one_kernel_with_enable_matches_plain_version(cuda, td_mode,
                                                          mode):
     """Four Table-2 drives with every other one disabled: the kernel and
     gc_one_ref land the same (out and every field), a disabled drive's
     state is untouched and its out (-1, -1, 0)."""
-    ctx, st, policy, _ = _table2_drive(td_mode, False)
-    d, b = 4, TABLE2.pages_per_block
-    state = {k: (v.view(1) if k in gc_one_kernel.COUNTERS else v[None])
-             for k, v in ((k, getattr(st, k).cpu())
-                          for k in gc_one_kernel.STATE_FIELDS)}
-    state = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
-             for k, v in state.items()}
-    g = torch.arange(d) % ctx.n_groups
+    ctx, args, kw = _gc_one_args(td_mode, 4, mode)
+    state, g, b = args["state"], args["g"], TABLE2.pages_per_block
     if mode == "gc":  # open blocks full and over budget: decided
-        for i in range(d):
+        for i in range(4):
             state["fill"][i, int(state["active_blk"][i, g[i]])] = b
             state["grp_alloc"][i, g[i]] = 0
-    gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"].cpu()
-    enable = torch.tensor([True, False, True, False])
-    args = dict(state=state, gc_w=gc_w.repeat(d, 1),
-                g=g if mode == "gc" else None, enable=enable,
-                out=torch.full((d, 3), -9, dtype=torch.int64))
-    kw = dict(mode=mode, td_mode=td_mode, drain=td_mode == "static",
-              gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
-
-    def on(device):
-        return {k: None if v is None else (
-            {kk: vv.to(device, copy=True) for kk, vv in v.items()}
-            if isinstance(v, dict) else v.to(device, copy=True))
-            for k, v in args.items()}
-
-    got, want = on(cuda), on("cpu")
+    args["enable"] = torch.tensor([True, False, True, False])
+    got, want = _on(args, cuda), _on(args, "cpu")
     gc_one_kernel.gc_one_cuda(**got, **kw)
     torch.cuda.synchronize()
     gc_one_ref.gc_one_ref(**want, **kw)
@@ -452,7 +461,7 @@ def test_gc_one_kernel_with_enable_matches_plain_version(cuda, td_mode,
     assert (want["out"][1::2] == torch.tensor([-1, -1, 0])).all()
     for k, v in want["state"].items():
         assert torch.equal(got["state"][k].cpu(), v), k
-        assert torch.equal(v[1::2], args["state"][k][1::2]), k
+        assert torch.equal(v[1::2], state[k][1::2]), k
 
 
 def _fault_policy(d, cuda_rate=(0.0, 0.3, 0.6, 1.0)):
@@ -471,41 +480,27 @@ def _fault_policy(d, cuda_rate=(0.0, 0.3, 0.6, 1.0)):
 @pytest.mark.cuda
 @pytest.mark.parametrize("retries", [0, 3])
 @pytest.mark.parametrize("d", [1, 8])
-def test_gc_one_kernel_with_faults_matches_plain_version(cuda, d, retries):
-    """The static GC with the fault hook: from a Table-2 state reached on
-    the card, d drives' decided GCs (open blocks full and over budget)
-    through the kernel and gc_one_ref, with a fault policy that retires
-    some erases, spares 0 on every other drive (a retire degrades it) and
-    draw counters near the top of uint32: out and every state field
-    exact, and at least one block retired."""
-    ctx, st, policy, _ = _table2_drive("static", False)
-    b = TABLE2.pages_per_block
-    fields = gc_one_kernel.STATE_FIELDS + gc_one_kernel.FAULT_FIELDS
-    state = {k: (v.view(1) if v.dim() == 0 else v[None])
-             for k, v in ((k, getattr(st, k).cpu()) for k in fields)}
-    state = {k: v.repeat(d, *[1] * (v.dim() - 1)).contiguous()
-             for k, v in state.items()}
+@pytest.mark.parametrize("td_mode", ["static", "fdp", "bloom"])
+def test_gc_one_kernel_with_faults_matches_plain_version(cuda, td_mode, d,
+                                                         retries):
+    """The GC with the fault hook (after the static or the demoting
+    drain): from a Table-2 state reached on the card, d drives' decided
+    GCs (open blocks full and over budget) through the kernel and
+    gc_one_ref, with a fault policy that retires some erases, spares 0 on
+    every other drive (a retire degrades it) and draw counters near the
+    top of uint32: out and every state field exact, and at least one block
+    retired."""
+    ctx, args, kw = _gc_one_args(td_mode, d, "gc", fault_fields=True)
+    state, g, b = args["state"], args["g"], TABLE2.pages_per_block
     i = torch.arange(d)
     state["spares_left"] = torch.where(i % 2 == 0, 0, 3).int()
     state["fault_draws"].view(torch.int32).copy_((-3 - 1000 * i).int())
-    g = i % ctx.n_groups
     for j in range(d):
         state["fill"][j, int(state["active_blk"][j, g[j]])] = b
         state["grp_alloc"][j, g[j]] = 0
-    args = dict(state=state, gc_w=policy["gc_w"].cpu().repeat(d, 1), g=g,
-                out=torch.full((d, 3), -9, dtype=torch.int64),
-                fault_policy=_fault_policy(d))
-    kw = dict(mode="gc", td_mode="static", drain=True,
-              gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks,
-              erase_max_retries=retries)
-
-    def on(device):
-        return {k: None if v is None else (
-            {kk: vv.to(device, copy=True) for kk, vv in v.items()}
-            if isinstance(v, dict) else v.to(device, copy=True))
-            for k, v in args.items()}
-
-    got, want = on(cuda), on("cpu")
+    args["fault_policy"] = _fault_policy(d)
+    kw["erase_max_retries"] = retries
+    got, want = _on(args, cuda), _on(args, "cpu")
     gc_one_kernel.gc_one_cuda(**got, **kw)
     torch.cuda.synchronize()
     gc_one_ref.gc_one_ref(**want, **kw)
@@ -589,9 +584,9 @@ def _faulty_specs(n):
 
 @pytest.mark.cuda
 def test_card_faulty_runs_and_fleet_match_cpu(cuda):
-    """Faulty drives (retire hook in gc_one and after the demoting drain,
-    halt guard in write_run) on the card equal their CPU runs, alone and
-    as a fleet with a fault-free drive, bit for bit."""
+    """Faulty drives (retire hook in gc_one after the static and the
+    demoting drain, halt guard in write_run) on the card equal their CPU
+    runs, alone and as a fleet with a fault-free drive, bit for bit."""
     geom, specs = Geometry(4, 32, 8), _faulty_specs(3000)
     for s in specs[::2]:
         card = managers.simulate(geom, s.mcfg, list(s.phases), seed=s.seed,
@@ -652,6 +647,33 @@ def test_card_fleet_matches_cpu_fleet(cuda):
         for name, v in card.state(i).items():
             assert torch.equal(v.cpu(), host.state(i)[name]), (i, name)
         assert_invariants(card.state(i))
+
+
+@pytest.mark.cuda
+def test_card_churn_fleet_matches_cpu_fleet(cuda):
+    """Four wolf_dynamic drives on tpcc_churn (bloom detector, demoting
+    drains) as one fleet on the card equal the same fleet on the CPU, bit
+    for bit; every gc_one launch carries the demoting drain, and none
+    goes through compact_slots."""
+    geom = Geometry(4, 32, 8)
+    specs = [fleet.DriveSpec(managers.wolf_dynamic(),
+                             (workloads.tpcc_churn(geom.lba_pages, 3000),),
+                             seed) for seed in range(4)]
+    n = (gc_one_kernel.launches, gc_one_kernel.demote_launches,
+         gc_kernel.launches)
+    card = fleet.simulate_fleet(geom, specs, sampler="numpy")
+    gcs = gc_one_kernel.launches - n[0]
+    assert gcs > 0 and gc_one_kernel.demote_launches - n[1] == gcs
+    assert gc_kernel.launches == n[2]
+    host = fleet.simulate_fleet(geom, specs, sampler="numpy", device="cpu")
+    np.testing.assert_array_equal(card.app, host.app)
+    np.testing.assert_array_equal(card.mig, host.mig)
+    assert card.exec_meta == host.exec_meta
+    for i in range(len(specs)):
+        for name, v in card.state(i).items():
+            assert torch.equal(v.cpu(), host.state(i)[name]), (i, name)
+        assert_invariants(card.state(i))
+        assert int(card.state(i).n_erase) > 0
 
 
 @pytest.mark.cuda

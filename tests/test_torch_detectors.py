@@ -23,6 +23,7 @@ from repro.core.ssd import Geometry as RefGeometry
 from repro_torch import convert
 from repro_torch.core import managers, simulator, workloads
 from repro_torch.core.ssd import Geometry, assert_invariants
+from repro_torch.kernels.gc_one import ref as gc_ref
 
 GEOM = (4, 32, 8, 0.7)
 TABLE2 = (8, 1024, 128, 0.7)
@@ -88,8 +89,7 @@ def test_bloom_updates_and_queries_match_reference():
         want_q = [bool(ref_simulator._bloom_query(
                       ref_ctx, f, jnp.asarray(lba, jnp.int32), g))
                   for f in (ref_st.bloom_active, ref_st.bloom_passive)]
-        got_q = [bool(simulator._bloom_query(ctx, f, torch.tensor(lba),
-                                             torch.tensor(g)))
+        got_q = [bool(gc_ref.bloom_query(f, torch.tensor(lba), int(g)))
                  for f in (st.bloom_active, st.bloom_passive)]
         assert got_q == want_q
         ref_st, want = ref_simulator._bloom_update(
@@ -150,9 +150,7 @@ def test_neighbor_finds_match_argsort_oracle_and_reference(seed):
         if active[g]:
             assert (up, dn) == (oracle(g, -1), oracle(g, 1))
             assert (up, dn) == (int(ref_oracle(g, -1)), int(ref_oracle(g, 1)))
-            known = simulator._neighbor_colder(hr, act, gt,
-                                               g_known_active=True)
-            assert int(known) == dn
+            assert gc_ref.colder_neighbor(hr, act, g) == dn
 
 
 # -- the presets end to end --------------------------------------------------

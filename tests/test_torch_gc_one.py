@@ -3,9 +3,8 @@ the JAX package's ``_gc_one``.
 
 ``gc_one_`` chooses a GC's group by mode (the heavy write's own group with
 its firing predicate; the emergency valve's; a movement operation's), the
-victim by the weighted score, decides, and under the static detector
-drains the victim, all in one call; the simulator's ``_gc_one`` adds the
-demoting drain of the FDP and bloom detectors on one host read. From
+victim by the weighted score, decides, and drains the victim (demoting
+under the FDP and bloom detectors), all in one call, with no host read. From
 states taken mid-run at Geometry(4, 32, 8, 0.7), numpy-made and carried
 through ``convert``, every ``SimState`` field must equal the JAX
 package's after its ``_gc_one`` with the same group, weights and
@@ -27,7 +26,13 @@ from repro.core import workloads as ref_workloads
 from repro.core.ssd import Geometry as RefGeometry
 from repro_torch import convert
 from repro_torch.core import managers, simulator, workloads
-from repro_torch.core.ssd import CLOSED, Geometry, assert_invariants
+from repro_torch.core.ssd import (
+    CLOSED,
+    FREE,
+    OPEN,
+    Geometry,
+    assert_invariants,
+)
 from repro_torch.kernels.gc_one import kernel as gc_kernel
 from repro_torch.kernels.gc_one import ops as gc_ops
 from repro_torch.kernels.gc_one import ref as gc_ref
@@ -184,16 +189,15 @@ def _port_gc_one(ctx, st, policy, mode, g=None):
     return simulator.host_syncs - before
 
 
-def _compare(preset, mode, demoting):
+def _compare(preset, mode):
     """Walk two drives' heavy writes; at the states handed to their GCs,
     compare ``mode``'s GC with the JAX package's (in mode "gc" at the
     write's group and at the last group slot, which no preset here fills:
     a group with no CLOSED block; the valve and a movement operation at
     the state handed to any GC): the first EACH states where the port's
-    GC drains and the first EACH where it does not. A decision costs no
-    host read under the static detector, and one under a demoting one
-    (whose drain reads which pages demote). Returns (drained, refused)
-    over the states compared."""
+    GC drains and the first EACH where it does not. A GC costs no host
+    read under any detector: the demoting drain is the launch's too.
+    Returns (drained, refused) over the states compared."""
     seen = {True: 0, False: 0}
     for seed in (1, 2):
         for ctx, st, policy, rate, kind, g in _gc_states(preset, seed):
@@ -204,7 +208,7 @@ def _compare(preset, mode, demoting):
                 got = _copy(st)
                 reads = _port_gc_one(ctx, got, policy, mode, grp)
                 drained = int(got.n_erase) > int(st.n_erase)
-                assert reads == (1 + drained if demoting else 0)
+                assert reads == 0
                 if seen[drained] >= EACH:
                     continue
                 seen[drained] += 1
@@ -223,18 +227,17 @@ def test_static_gc_matches_jax(preset, mode):
     gc_one_ equals the JAX package's after _gc_one, with no host read;
     GCs are both decided and refused (the valve's always drains while the
     pool holds a block)."""
-    drained, refused = _compare(preset, mode, demoting=False)
+    drained, refused = _compare(preset, mode)
     assert drained == EACH and (mode == "valve" or refused == EACH)
 
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("preset", ["fdp", "wolf_dynamic"])
 def test_demoting_gc_matches_jax(preset, mode):
-    """FDP and bloom detectors: gc_one_ decides on the device, and the
-    simulator drains (with §5.6 demotion) after one host read. Every state
-    field equals the JAX package's; in mode "gc" GCs are both decided and
-    refused."""
-    drained, refused = _compare(preset, mode, demoting=True)
+    """FDP and bloom detectors: gc_one_ decides and drains (with §5.6
+    demotion) in one call, with no host read. Every state field equals
+    the JAX package's; in mode "gc" GCs are both decided and refused."""
+    drained, refused = _compare(preset, mode)
     # fdp runs no movement operations, so its surpluses stay and a
     # movement GC is always enabled there
     assert drained == EACH and (mode != "gc" or refused == EACH)
@@ -242,10 +245,13 @@ def test_demoting_gc_matches_jax(preset, mode):
 
 def _args(ctx, states, policy, mode, g=None, gc_w=None):
     """gc_one_'s arguments for the drives ``states`` (stacked on a drive
-    axis)."""
+    axis), drained as the simulator drains them."""
     d = len(states)
+    td = ctx.mcfg.td_mode
+    fields = gc_kernel.STATE_FIELDS + (
+        gc_kernel.DEMOTE_FIELDS if td != "static" else ())
     state = {k: torch.stack([getattr(s, k) for s in states]).contiguous()
-             for k in gc_kernel.STATE_FIELDS}
+             for k in fields}
     if gc_w is None:
         gc_w = policy["gc_w_greedy" if mode == "valve" else "gc_w"]
     return dict(
@@ -253,8 +259,9 @@ def _args(ctx, states, policy, mode, g=None, gc_w=None):
         gc_w=gc_w.expand(d, 4).contiguous(),
         g=None if g is None else torch.as_tensor(g, dtype=torch.int64),
         out=torch.full((d, 3), -9, dtype=torch.int64),
-    ), dict(mode=mode, td_mode=ctx.mcfg.td_mode,
-            drain=ctx.mcfg.td_mode == "static",
+        fdp_policy=({k: policy[k].expand(d, -1).contiguous()
+                     for k in gc_kernel.FDP_POLICY} if td == "fdp" else None),
+    ), dict(mode=mode, td_mode=td, drain=True,
             gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
 
 
@@ -273,10 +280,12 @@ def _first_decided(preset, seed, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_batched_drives_equal_single_drive_calls(mode):
+@pytest.mark.parametrize("preset", ["wolf_wear", "wolf_dynamic"])
+def test_batched_drives_equal_single_drive_calls(preset, mode):
     """Four drives in one call (each its own state and group) land exactly
-    what four single-drive calls land, out included."""
-    drives = [_first_decided("wolf_wear", seed, mode)
+    what four single-drive calls land, out included, static and demoting
+    drains alike."""
+    drives = [_first_decided(preset, seed, mode)
               for seed in (1, 2, 3, 4)]
     ctx, policy = drives[0][0], drives[0][2]
     groups = [d[5] for d in drives] if mode == "gc" else None
@@ -293,6 +302,60 @@ def test_batched_drives_equal_single_drive_calls(mode):
         assert torch.equal(args["out"][d], one["out"][0])
         for k, v in one["state"].items():
             assert torch.equal(args["state"][k][d], v[0]), k
+
+
+def _split_drain(pool):
+    """A decided FDP GC in mode "gc" whose victim's live pages split: every
+    other one from the second flagged (oracle rate 0), so it demotes to
+    g's colder neighbour, the rest kept in g (rate 1e9), so g's claim
+    comes first whatever the groups' order; every active block full, so
+    both target groups overflow, and the pool counter at ``pool``.
+    Returns (ctx, state, policy, rate, g) with the rates in the policy."""
+    for seed in (1, 2, 3, 4):
+        ctx, st, policy, _, _, g = _first_decided("fdp", seed, "gc")
+        hr = simulator._hit_rates(st)
+        victim, _, _ = gc_ref.decide(
+            {k: v for k, v in st.items()}, policy["gc_w"][0], g, mode="gc",
+            gc_reserve_blocks=ctx.mcfg.gc_reserve_blocks)
+        pages = st.slot_lba[victim][st.valid[victim]].tolist()
+        if len(pages) >= 2 and int(simulator._neighbor_colder(
+                hr, st.grp_active, torch.tensor(g))) != g:
+            break
+    else:
+        pytest.fail("no decided GC of two pages whose group has a colder "
+                    "neighbour")
+    assert float(policy["fdp_rate"][0, g]) > 0
+    rate = np.full(ctx.geom.lba_pages, 1e9, np.float32)
+    rate[pages[1::2]] = 0.0
+    policy = dict(policy, page_rate=torch.from_numpy(rate)[None])
+    b = ctx.geom.pages_per_block
+    for ab in st.active_blk[st.grp_active].tolist():
+        if ab >= 0:
+            st.fill[ab] = b
+    st.free_blocks.fill_(pool)
+    return ctx, st, policy, rate, g
+
+
+@pytest.mark.parametrize("pool", [64, 1], ids=["two_claims", "pool_out"])
+def test_demoting_drain_claims_in_first_overflow_order(pool):
+    """A demoting drain whose pages go to two groups, both overflowing
+    their active blocks: each claims a fresh block, the first to
+    overflow (by slot) the lowest FREE block; with the pool counter at 1
+    the second claim finds none, and its pages are dropped and counted.
+    Every state field equals the JAX package's after its _gc_one."""
+    ctx, st, policy, rate, g = _split_drain(pool)
+    got = _copy(st)
+    assert _port_gc_one(ctx, got, policy, "gc", g) == 0
+    want = _jax_gc_one(ctx, st, policy, rate, "gc", g)
+    _assert_equal(got, want, f"split drain, pool {pool}")
+    claimed = ((got.state == OPEN) & (st.state == FREE)).nonzero()
+    dropped = int(got.n_dropped) - int(st.n_dropped)
+    first = int((st.state == FREE).nonzero()[0])  # the lowest FREE block
+    assert int(got.active_blk[g]) == first  # g overflowed first
+    if pool > 1:
+        assert len(claimed) == 2 and dropped == 0
+    else:
+        assert len(claimed) == 1 and dropped > 0
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -375,9 +438,13 @@ def test_whole_run_matches_jax(preset):
 
 @pytest.mark.parametrize("bad", [
     "dtype", "shape", "missing_field", "mode", "td_mode", "g_in_valve",
-    "no_g", "groups", "device"])
+    "no_g", "groups", "device", "no_fdp_rates", "fdp_rates_shape",
+    "bloom_shape", "no_grp_p"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    ctx, st, policy, _, _ = _drive("wolf", 1)
+    preset = {"no_fdp_rates": "fdp", "fdp_rates_shape": "fdp",
+              "bloom_shape": "wolf_dynamic",
+              "no_grp_p": "wolf_dynamic"}.get(bad, "wolf")
+    ctx, st, policy, _, _ = _drive(preset, 1)
     mode = "valve" if bad == "g_in_valve" else "gc"
     args, kw = _args(ctx, [st], policy, mode, [0])
     state = args["state"]
@@ -399,6 +466,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
             state[k] = state[k].repeat(1, 9)
     elif bad == "device":
         args["out"] = args["out"].to("meta")
+    elif bad == "no_fdp_rates":
+        args["fdp_policy"] = None
+    elif bad == "fdp_rates_shape":
+        args["fdp_policy"]["page_rate"] = args["fdp_policy"]["page_rate"][
+            :, 1:].contiguous()
+    elif bad == "bloom_shape":
+        state["bloom_passive"] = state["bloom_passive"][:, 1:].contiguous()
+    elif bad == "no_grp_p":
+        del state["grp_p"]
     before = {k: v.clone() for k, v in state.items()}
     with pytest.raises(ValueError):
         gc_ops.gc_one_(**args, **kw)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import fleet, managers, simulator, workloads
 from repro_torch.core.ssd import Geometry
+from repro_torch.kernels.gc_one import ref as gc_ref
 from repro_torch.utils import spans
 
 GEOM = Geometry(4, 32, 8)
@@ -22,6 +23,10 @@ GC_MODES = ("gc.gc", "gc.valve", "gc.movement")
 # what each wrapped launch must lie inside
 INSIDE = {"write_run_": ("sim.round",), "gc_one_": GC_MODES,
           "compact_slots_": ("gc.demote_drain",)}
+# the module that calls each launch (the demoting drain's compact_slots_:
+# the GC kernel's plain version, which the CPU runs)
+CALLER = {"write_run_": simulator, "gc_one_": simulator,
+          "compact_slots_": gc_ref}
 
 
 def fleet_specs(kind: str):
@@ -61,9 +66,9 @@ def traced(request):
         rec = spans.Recorder()
         mp.setattr(spans, "RECORDER", rec)
         calls = collections.Counter()
-        for name in INSIDE:
-            mp.setattr(simulator, name,
-                       wrapped(name, getattr(simulator, name), calls))
+        for name, module in CALLER.items():
+            mp.setattr(module, name,
+                       wrapped(name, getattr(module, name), calls))
         before = (simulator.rounds, simulator.host_syncs)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:

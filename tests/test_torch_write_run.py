@@ -23,7 +23,7 @@ from repro.core import ssd as ref_ssd
 from repro.core.ssd import Geometry as RefGeometry
 from repro_torch import convert
 from repro_torch.core import managers, simulator, workloads
-from repro_torch.core.simulator import _add, _gat, _get
+from repro_torch.core.simulator import _gat
 from repro_torch.core.ssd import Geometry
 from repro_torch.kernels.write_path.ops import apply_write_
 from repro_torch.kernels.write_run import kernel as wr_kernel
@@ -137,9 +137,9 @@ def _step_write(ctx, st, lba, w, policy):
         g = simulator._target_group_app(ctx, bst, lba1, old_g, policy)
         g = torch.where(_gat(bst.grp_active, g), g, old_g)
     g, old_pm = g[0], old_pm[0]
-    blk = _get(st.active_blk, g)
+    blk = st.active_blk[g]
     blk_c = blk.clamp(min=0).long()
-    slot = _get(st.fill, blk_c)
+    slot = st.fill[blk_c]
     may = (blk < 0) | (slot >= b) | (st.free_blocks < 2)
     if ctx.mcfg.movement_ops:
         may = may | (st.grp_surplus.max() >= 1)
@@ -154,7 +154,7 @@ def _step_write(ctx, st, lba, w, policy):
     apply_write_(row, st.page_map[None], st.slot_lba[None], st.valid[None])
     for t, i in ((st.fill, blk_c), (st.live, blk_c), (st.grp_size, g),
                  (st.grp_live, g), (st.grp_writes, g)):
-        _add(t, i, 1)
+        t[i] += 1
     st.mapped_pages.add_(1)
     st.n_app.add_(1)
     return False
